@@ -1,0 +1,20 @@
+"""Config registry of the port: ``get_config("protocol-125m")``.
+
+Holds only the configurations whose model family the port runs so far.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.protocol_125m import CONFIG as _protocol_125m
+
+REGISTRY = {c.name: c for c in (_protocol_125m,)}
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}") from None
+
+
+__all__ = ["DENSE", "ModelConfig", "REGISTRY", "get_config"]

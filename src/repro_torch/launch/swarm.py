@@ -1,0 +1,166 @@
+"""Train protocol-125m across a simulated incentivized swarm: the port's
+twin of ``examples/swarm_byzantine_training.py``.
+
+    python -m repro_torch.launch.swarm                 # reduced width, on the card
+    python -m repro_torch.launch.swarm --full          # 162,417,408 params
+    python -m repro_torch.launch.swarm --device cpu --rounds 3
+
+The "showcase" roster exercises the five §3 properties and the §4
+incentives at once: 10 heterogeneous nodes (speeds 0.5-3x, two join late,
+one leaves), two Byzantine nodes (inner-product and sign-flip attacks),
+a QSGD wire (127 levels, buckets of 512), CenteredClip aggregation
+(τ = 2.0, 3 iterations) and stake/slash audits (p = 0.25), trained with
+AdamW at lr 5e-3 on sequences of 128 tokens, a global batch of 2N.  It
+prints the reference's columns and ledger report.  The reference ends with
+a custody-sharded checkpoint; that waits for the custody slice (ROADMAP
+queue 1, item 5) and is skipped here.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from repro_torch.configs import ModelConfig, get_config
+from repro_torch.core.swarm import NodeSpec, Swarm, SwarmConfig, make_swarm
+from repro_torch.core.verification import VerificationConfig
+from repro_torch.data.pipeline import DataConfig, data_fn_for_swarm, model_batch
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import build_model
+from repro_torch.optim.optimizer import AdamW
+
+
+def showcase_roster(rounds: int):
+    """The all-properties-at-once roster of the reference example."""
+    nodes = [
+        NodeSpec("h0", speed=3.0),
+        NodeSpec("h1", speed=1.0),
+        NodeSpec("h2", speed=1.0),
+        NodeSpec("h3", speed=0.5),
+        NodeSpec("h4", speed=1.0, leave_round=rounds // 2),
+        NodeSpec("h5", speed=1.0),
+        NodeSpec("late0", speed=2.0, join_round=rounds // 4),
+        NodeSpec("late1", speed=1.0, join_round=rounds // 4),
+        NodeSpec("adv0", byzantine="inner_product", byzantine_scale=20.0),
+        NodeSpec("adv1", byzantine="sign_flip", byzantine_scale=10.0),
+    ]
+    cfg = SwarmConfig(
+        aggregator="centered_clip",
+        agg_kwargs={"clip_tau": 2.0, "iters": 3},
+        verification=VerificationConfig(p_check=0.25, stake=10.0,
+                                        tolerance=1e-3, jackpot=5.0),
+        compression="qsgd",
+        compression_kwargs={"levels": 127, "bucket_size": 512},
+    )
+    return nodes, cfg
+
+
+def model_config(full: bool) -> ModelConfig:
+    cfg = get_config("protocol-125m")
+    if full:
+        return cfg
+    return cfg.reduced(num_layers=4, d_model=256, num_heads=4, head_dim=64,
+                       d_ff=1024, vocab_size=2048)
+
+
+@dataclass
+class Problem:
+    """One model, its random params and the pieces a swarm needs."""
+    cfg: ModelConfig
+    params: Dict[str, torch.Tensor]
+    loss_fn: Callable
+    device: torch.device
+    seq_len: int = 128
+
+    def data_cfg(self, n_nodes: int) -> DataConfig:
+        return DataConfig(vocab_size=self.cfg.vocab_size, seq_len=self.seq_len,
+                          global_batch=2 * n_nodes)
+
+    def data_fn(self, n_nodes: int):
+        return data_fn_for_swarm(self.cfg, self.data_cfg(n_nodes), n_nodes,
+                                 device=self.device)
+
+    def eval_loss(self, params, n_nodes: int) -> float:
+        batch = model_batch(self.cfg, self.data_cfg(n_nodes), 10**6,
+                            device=self.device)
+        with torch.no_grad():
+            return float(self.loss_fn(params, batch))
+
+
+def build_problem(full: bool, device: DeviceLike = None, seed: int = 0) -> Problem:
+    dev = resolve_device(device)
+    cfg = model_config(full)
+    model = build_model(cfg)
+    params = model.init(seed, dev)
+    return Problem(cfg=cfg, params=params, loss_fn=lambda p, b: model.loss(p, b)[0],
+                   device=dev)
+
+
+def make_showcase_swarm(problem: Problem, nodes: Sequence[NodeSpec],
+                        cfg: SwarmConfig, lr: float = 5e-3) -> Swarm:
+    params = {k: v.clone() for k, v in problem.params.items()}
+    return make_swarm(problem.loss_fn, params, AdamW(lr=lr), list(nodes), cfg,
+                      problem.data_fn(len(nodes)))
+
+
+def train(swarm: Swarm, problem: Problem, rounds: int, *, print_every: int = 20,
+          out: Callable[[str], None] = print) -> List[float]:
+    """Step ``rounds`` rounds, printing the reference's columns; returns the
+    eval losses printed."""
+    n = len(swarm.nodes)
+    losses = []
+    out(f"{'round':>6} {'active':>6} {'byz':>4} {'loss':>8}  slashed")
+    for r in range(rounds):
+        rec = swarm.step(r)
+        if r % print_every == 0 or r == rounds - 1:
+            loss = problem.eval_loss(swarm.eval_params(), n)
+            losses.append(loss)
+            out(f"{r:6d} {rec['n_active']:6d} {rec['n_byzantine']:4d} "
+                f"{loss:8.4f}  {sorted(swarm.slashed)}")
+    return losses
+
+
+def report_ledger(swarm: Swarm, out: Callable[[str], None] = print) -> None:
+    out("\nfractional ownership (ledger):")
+    for node, bal in sorted(swarm.ledger.balances.items(), key=lambda kv: -kv[1]):
+        out(f"  {node:10s} {bal:8.1f} shares "
+            f"({swarm.ledger.ownership_fraction(node) * 100:5.1f}%)")
+    out(f"  burned stake: {swarm.ledger.burned_stake:g} "
+        f"(slashed: {sorted(swarm.slashed)})")
+    if not swarm.ledger.check_conservation():
+        raise RuntimeError("ledger does not conserve value")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rounds", type=int, default=200)
+    ap.add_argument("--full", action="store_true",
+                    help="true 125M params (162,417,408)")
+    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                    help="default: cuda (raises when CUDA is missing)")
+    ap.add_argument("--seed", type=int, default=0, help="weight-init seed")
+    args = ap.parse_args(argv)
+
+    problem = build_problem(args.full, args.device, args.seed)
+    print(f"model: {problem.cfg.name} N={problem.cfg.param_count():,} "
+          f"({'full' if args.full else 'reduced'}) on {problem.device}")
+    nodes, cfg = showcase_roster(args.rounds)
+    print(f"scenario: showcase ({len(nodes)} nodes, engine=batched)")
+    swarm = make_showcase_swarm(problem, nodes, cfg)
+    t0 = time.time()
+    losses = train(swarm, problem, args.rounds)
+    if problem.device.type == "cuda":
+        torch.cuda.synchronize(problem.device)
+    dt = time.time() - t0
+    print(f"\ntrained {args.rounds} rounds in {dt:.0f}s "
+          f"({args.rounds / max(dt, 1e-9):.2f} rounds/s, fused={swarm.fused})")
+    report_ledger(swarm)
+    return {"swarm": swarm, "problem": problem, "losses": losses,
+            "seconds": dt, "rounds": args.rounds, "nodes": nodes}
+
+
+if __name__ == "__main__":
+    main()
