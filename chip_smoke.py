@@ -14,8 +14,8 @@ Phases, each timed with CUDA events:
    swarm round's full-width shapes (N = 10 nodes, D = 162,417,408) and at
    ragged ones (N = 3, D not a multiple of a block; k = 1, an even k, all
    rows masked): the median bit-equal, CenteredClip within 3e-5, krum's d2
-   selection-equal (and within its gram-form rounding), decode-accumulate
-   within 1e-6;
+   selection-equal and within 1e-5 of the squared norms of both its plain
+   version and a float64 gram, decode-accumulate within 1e-6;
 3. the main path: ``python -m repro_torch.launch.swarm --full --rounds 3``
    (the showcase: protocol-125m at full width, 10 nodes, QSGD wire,
    CenteredClip, audits), with finite loss, only Byzantine nodes slashed
@@ -23,8 +23,9 @@ Phases, each timed with CUDA events:
 4. one more full-width round on each config that reaches the other
    kernels: krum (krum_d2), the compressed-wire scenario's mean over a
    64-level QSGD wire (decode-accumulate), sign_flip_minority's adaptive-τ
-   CenteredClip.  Launch counters are zeroed just before phase 3 and read
-   just after phase 4: every kernel must have launched;
+   CenteredClip.  Each of these runs, and the showcase's, has launch
+   counters of its own: zeroed just before it, read just after it, and
+   held to the launches that path must make (``EXPECTED_LAUNCHES``);
 5. fused against unfused: one showcase round from the same state with the
    same draws; equal audits and masks, close aggregate and params; then two
    more showcase rounds timed, and one under torch.profiler (device time by
@@ -49,19 +50,32 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_NODES = 10
 D_FULL = 162_417_408            # protocol-125m's parameter count
+SHOWCASE_ROUNDS = 3
 BUCKET, LEVELS_WIRE = 512, 64   # compressed_wire's QSGD wire
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 
+# kernel -> (source, TPU kernel it replaces, the driven path that is its own)
 KERNELS = {
     "masked_median": ("src/repro_torch/csrc/masked_agg.cu",
-                      "src/repro/kernels/masked_agg/kernel.py:133"),
+                      "src/repro/kernels/masked_agg/kernel.py:133", "showcase"),
     "masked_cc_iter": ("src/repro_torch/csrc/masked_agg.cu",
-                       "src/repro/kernels/masked_agg/kernel.py:192"),
+                       "src/repro/kernels/masked_agg/kernel.py:192", "showcase"),
     "masked_krum_d2": ("src/repro_torch/csrc/masked_agg.cu",
-                       "src/repro/kernels/masked_agg/kernel.py:234"),
+                       "src/repro/kernels/masked_agg/kernel.py:234", "krum"),
     "qsgd_decode_accumulate": ("src/repro_torch/csrc/qsgd_decode.cu",
-                               "src/repro/kernels/qsgd_decode/kernel.py:41"),
+                               "src/repro/kernels/qsgd_decode/kernel.py:41",
+                               "compressed_wire"),
+}
+
+# launches each driven path must make (kernels not named: none).  A
+# CenteredClip round warm-starts from one median and runs 3 iterations.
+EXPECTED_LAUNCHES = {
+    "showcase": {"masked_median": SHOWCASE_ROUNDS,
+                 "masked_cc_iter": 3 * SHOWCASE_ROUNDS},
+    "krum": {"masked_krum_d2": 1},
+    "compressed_wire": {"qsgd_decode_accumulate": 1},
+    "sign_flip_minority": {"masked_median": 1, "masked_cc_iter": 3},
 }
 
 
@@ -105,7 +119,7 @@ class Smoke:
         self.build = build
         self.dev = torch.device("cuda")
         self.errors = {}           # kernel -> max abs error at main-path shapes
-        self.launches = {}
+        self.launches = {}         # driven path -> {kernel: launches on it}
 
     # -- helpers ------------------------------------------------------------------
     def phase(self, name, fn):
@@ -148,23 +162,30 @@ class Smoke:
         self.errors[name] = max(self.errors.get(name, 0.0), err)
         return err
 
-    # -- phases -------------------------------------------------------------------
-    def run(self):
-        torch = self.torch
-        self.phase("1 build kernels", self.build_kernels)
-        self.phase("2 kernels vs plain", self.kernels_vs_plain)
+    def counted(self, path, fn):
+        """Run ``fn`` with every launch counter at 0 and hold the counts
+        just after it to ``EXPECTED_LAUNCHES[path]``."""
         from repro_torch.kernels.masked_agg import ops as magg
         from repro_torch.kernels.qsgd_decode import ops as qdec
         for d in (magg.LAUNCHES, qdec.LAUNCHES):
             for k in d:
                 d[k] = 0
+        out = fn()
+        got = {**magg.LAUNCHES, **qdec.LAUNCHES}
+        want = {k: EXPECTED_LAUNCHES[path].get(k, 0) for k in got}
+        print(f"  launches on {path}: {json.dumps(got)}", flush=True)
+        check(got == want, f"{path}: launches {got}, expected {want}")
+        self.launches[path] = got
+        return out
+
+    # -- phases -------------------------------------------------------------------
+    def run(self):
+        torch = self.torch
+        self.phase("1 build kernels", self.build_kernels)
+        self.phase("2 kernels vs plain", self.kernels_vs_plain)
         torch.cuda.reset_peak_memory_stats()
         main_out = self.phase("3 main path (showcase, full width)", self.main_path)
         self.phase("4 other configs (full width)", lambda: self.other_configs(main_out))
-        self.launches = {**magg.LAUNCHES, **qdec.LAUNCHES}
-        print(f"launches over phases 3-4: {json.dumps(self.launches)}", flush=True)
-        for k, n in self.launches.items():
-            check(n > 0, f"kernel {k} was never launched on the main path")
         self.phase("5 fused vs unfused", lambda: self.fused_vs_unfused(main_out))
         self.phase("5b showcase rounds timed and profiled",
                    lambda: self.profile_rounds(main_out))
@@ -223,30 +244,29 @@ class Smoke:
                     del o, r
                 del out, ref, v
                 print(f"  median + cc_iter ok: {tag}", flush=True)
-            # krum d2: gram-form rounding, same selection on every mask
+            # krum d2: gram-form rounding, same selection on every mask.  The
+            # gram form cancels: d2 = |x_i|^2 + |x_j|^2 - 2 x_i.x_j, so float32
+            # rounding scales with the squared norms, sums of D products
+            # (~1e-6 of them at D = 1.6e8).  Held against the plain version
+            # (which sums the same 128-column tiles) and against an
+            # independent float64 gram, each within 1e-5 of the squared norms
             d2, ref = magg.masked_krum_d2(x), magg.masked_krum_d2_plain(x)
-            # gram form cancels: d2 = |x_i|^2 + |x_j|^2 - 2 x_i.x_j, so both
-            # versions' float32 rounding scales with the squared norms, sums
-            # of D products (~1e-5 of them at D = 1.6e8); selection is the
-            # contract
-            sq = torch.stack([torch.sum(x[i] * x[i]) for i in range(n)])
-            scale = sq[:, None] + sq[None, :]
-            rel = float(((d2 - ref).abs() / scale).max())
-            print(f"  krum_d2: max |d2 - plain| / (|x_i|^2 + |x_j|^2) = {rel:.3e}",
-                  flush=True)
-            check(rel <= 1e-5, f"krum d2 beyond 1e-5 of the squared norms (N={n})")
-            if main_shape:
-                g64 = torch.zeros((n, n), dtype=torch.float64, device=self.dev)
-                for c0 in range(0, d, (1 << 24) // n):
-                    xc = x[:, c0:c0 + (1 << 24) // n].double()
-                    g64 += xc @ xc.T
-                q = torch.diagonal(g64)
-                d64 = q[:, None] + q[None, :] - 2.0 * g64
-                for who, val in (("kernel", d2), ("plain", ref)):
-                    e = float(((val.double() - d64).abs() / scale.double()).max())
-                    print(f"  krum_d2 {who} vs float64: {e:.3e} of the squared norms",
-                          flush=True)
-                del g64, xc
+            g64 = torch.zeros((n, n), dtype=torch.float64, device=self.dev)
+            step = (1 << 24) // n
+            for c0 in range(0, d, step):
+                xc = x[:, c0:c0 + step].double()
+                g64 += xc @ xc.T
+            del xc
+            q = torch.diagonal(g64)
+            d64 = q[:, None] + q[None, :] - 2.0 * g64
+            scale = q[:, None] + q[None, :]
+            for who, val in (("plain", ref.double()), ("float64", d64)):
+                rel = float(((d2.double() - val).abs() / scale).max())
+                print(f"  krum_d2: max |d2 - {who}| / (|x_i|^2 + |x_j|^2) = "
+                      f"{rel:.3e}", flush=True)
+                check(rel <= 1e-5, f"krum d2 beyond 1e-5 of the squared norms "
+                                   f"from {who} (N={n})")
+            del g64, d64
             for kind in ("all", "k1", "even"):
                 m = self.mask(n, kind)
                 for f in (1, 2):
@@ -287,7 +307,8 @@ class Smoke:
         torch = self.torch
         from repro_torch.core.swarm import BEHAVIOURS
         from repro_torch.launch import swarm as launch
-        out = launch.main(["--full", "--rounds", "3"])
+        out = self.counted("showcase", lambda: launch.main(
+            ["--full", "--rounds", str(SHOWCASE_ROUNDS)]))
         sw = out["swarm"]
         byz = {n.node_id for n in sw.nodes if n.byzantine in BEHAVIOURS[1:]}
         check(all(math.isfinite(l) for l in out["losses"]), "non-finite loss")
@@ -319,7 +340,7 @@ class Smoke:
             sw = launch.make_showcase_swarm(problem, nodes, cfg)
             check(sw.fused, f"{name}: the full-width round should be fused")
             t0 = time.time()
-            rec = sw.step(0)
+            rec = self.counted(name, lambda: sw.step(0))
             self.torch.cuda.synchronize()
             loss = problem.eval_loss(sw.params, len(nodes))
             check(math.isfinite(rec["agg_norm"]) and math.isfinite(loss),
@@ -419,7 +440,6 @@ class Smoke:
         x = self.stack(n, d, seed=11)
         m = self.mask(n, "all")
         v = magg.masked_median(x, m)
-        saved = {**magg.LAUNCHES, **qdec.LAUNCHES}
 
         def nanquantile_chunks():
             step = (1 << 24) // n
@@ -458,9 +478,6 @@ class Smoke:
             lambda: qdec.decode_accumulate_plain(codes, norms, w, levels=LEVELS_WIRE,
                                                  bucket_size=BUCKET),
             None, n * nb * BUCKET + n * nb * f32 + n * f32 + nb * BUCKET * f32, 0))
-        # timing launches are not main-path launches
-        magg.LAUNCHES.update({k: saved[k] for k in magg.LAUNCHES})
-        qdec.LAUNCHES.update({k: saved[k] for k in qdec.LAUNCHES})
         return rows
 
     def row(self, name, kern, plain, lib, nbytes, flops):
@@ -469,9 +486,12 @@ class Smoke:
         lib_ms = self.time_ms(lib, 2) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / FP32_FLOP_PER_S * 1e3
-        src, replaces = KERNELS[name]
+        src, replaces, path = KERNELS[name]
+        # launches: on the kernel's own path; by path: every driven path
+        by_path = {p: c[name] for p, c in self.launches.items() if c[name]}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": self.launches[name], "max_abs_err": self.errors[name],
+               "launches": self.launches[path][name], "launches_by_path": by_path,
+               "max_abs_err": self.errors[name],
                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": lib_ms}

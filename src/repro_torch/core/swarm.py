@@ -90,7 +90,7 @@ class SwarmConfig:
     churn_coupled: bool = False
     custody: Optional[Any] = None
     #: fused hot path (kernels.masked_agg + kernels.qsgd_decode): None =
-    #: auto by stack size (see make_round_fn), True = force, False = never.
+    #: auto (see make_round_fn), True = force, False = never.
     fused: Optional[bool] = None
     staleness_bound: int = 0
     economy: Optional[Any] = None
@@ -229,11 +229,13 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     ``fused`` selects the hot path: aggregators run their fused twins
     (``kernels.masked_agg``) and a qsgd wire keeps the int8 payload live
     into aggregation instead of a decoded float32 stack.  ``None`` turns it
-    on when every aggregator has a fused twin, the wire is uncompressed or
-    int8-codeable qsgd, and the (N, D) float32 stack reaches
-    ``FUSED_MIN_BYTES``; ``True`` forces it (raising on unsupported
-    combinations); ``False`` forces the reference path.  The choice is
-    exposed as ``round_fn.fused``.
+    on when every aggregator has a fused twin and the wire is uncompressed
+    or int8-codeable qsgd; on the CPU (where the fused path runs the
+    kernels' plain versions) the (N, D) float32 stack must also reach
+    ``FUSED_MIN_BYTES``, as in the reference.  On the card it takes no
+    size threshold, so a fusable round always runs the kernels.  ``True``
+    forces it (raising on unsupported combinations); ``False`` forces the
+    reference path.  The choice is exposed as ``round_fn.fused``.
     """
     if not isinstance(aggregator, str):
         raise NotImplementedError("multi-aggregator routing waits for the "
@@ -251,7 +253,9 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
                     or ckw.get("levels", 16) <= 127)
     fused_ok = fusable_agg and fusable_wire
     if fused is None:
-        fused = fused_ok and stack_bytes >= masked_agg_ops.FUSED_MIN_BYTES
+        on_card = next(iter(params_template.values())).is_cuda
+        fused = fused_ok and (on_card
+                              or stack_bytes >= masked_agg_ops.FUSED_MIN_BYTES)
     elif fused and not fused_ok:
         raise ValueError(
             "fused=True unsupported here: needs an aggregator within "

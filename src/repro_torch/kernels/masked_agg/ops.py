@@ -33,9 +33,10 @@ from repro_torch.core import aggregation
 from repro_torch.kernels import build
 from repro_torch.kernels.qsgd_decode import ops as qdec
 
-#: make_round_fn auto-selects the fused path once the float32 update stack
-#: (N·D·4 bytes) crosses this.  The TPU's value: the H100 has not measured
-#: its own yet.
+#: On CPU tensors make_round_fn auto-selects the fused path once the float32
+#: update stack (N·D·4 bytes) crosses this, as the reference does.  The
+#: TPU's value; on the card the fused path takes no threshold (the H100's
+#: crossover is not measured), so a fusable round always runs the kernels.
 FUSED_MIN_BYTES = 4 << 20
 
 #: launches per kernel: +1 each time a wrapper launches its CUDA kernel

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import compression
+from repro_torch.core.swarm import make_round_fn
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels.masked_agg import ops as magg
@@ -25,6 +26,7 @@ from repro_torch.kernels.qsgd_decode import ops as qdec
 from repro_torch.launch import swarm as launch_swarm
 from repro_torch.models import convert
 from repro_torch.models.model import build_model
+from repro_torch.optim.optimizer import SGD
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -89,6 +91,24 @@ def test_launcher_runs_the_showcase_on_the_cpu_when_asked(capsys):
     assert all(np.isfinite(out["losses"]))
     assert swarm.ledger.check_conservation()
     assert "fractional ownership (ledger):" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("device,size,levels,expect", [
+    ("cpu", 8, 127, False),                       # below FUSED_MIN_BYTES
+    ("cpu", magg.FUSED_MIN_BYTES // 8, 127, True),
+    ("cpu", magg.FUSED_MIN_BYTES // 8, 200, False),   # codes beyond int8
+    pytest.param("cuda", 8, 127, True, marks=pytest.mark.cuda),
+])
+def test_fused_auto_choice(device, size, levels, expect):
+    """``fused=None`` resolves as the reference does on the CPU (fusable and
+    the (2, size) float32 stack reaches FUSED_MIN_BYTES); on the card any
+    fusable round takes the kernels."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available here)")
+    fn = make_round_fn(None, SGD(), {"w": torch.zeros(size, device=device)}, 2,
+                       aggregator="mean", compression_kind="qsgd",
+                       compression_kwargs={"levels": levels})
+    assert fn.fused is expect
 
 
 # ------------------------------- on the card -----------------------------------
