@@ -8,30 +8,57 @@ or of the JAX package.  Exits non-zero, printing no result, when CUDA is
 missing, when run outside the repository, or when any phase fails.
 Phases, each timed with CUDA events:
 
-1. build the four CUDA kernels from ``src/repro_torch/csrc`` (nvcc, in
-   parallel);
-2. each kernel against its plain PyTorch version, on the card, at the
+1. build the kernels from ``src/repro_torch/csrc`` (nvcc, one process per
+   source, all started together);
+2. each swarm kernel against its plain PyTorch version, on the card, at the
    swarm round's full-width shapes (N = 10 nodes, D = 162,417,408) and at
    ragged ones (N = 3, D not a multiple of a block; k = 1, an even k, all
    rows masked): the median bit-equal, CenteredClip within 3e-5, krum's d2
    selection-equal and within 1e-5 of the squared norms of both its plain
    version and a float64 gram, decode-accumulate within 1e-6;
-3. the main path: ``python -m repro_torch.launch.swarm --full --rounds 3``
-   (the showcase: protocol-125m at full width, 10 nodes, QSGD wire,
-   CenteredClip, audits), with finite loss, only Byzantine nodes slashed
-   and a conserving ledger;
-4. one more full-width round on each config that reaches the other
+3. the sliding-window attention kernel against its plain version at the
+   prefill's shape (B 1, S 32,768, H 32 / Hkv 8, hd 80, window 4,096, bf16)
+   and at ragged ones (S not a multiple of the tile, a window below a tile
+   or not a multiple of one or at least S, hd 64 / 80 / 128, float32 and
+   bfloat16): within 2e-2 in bf16 and 2e-4 in f32, two launches bit-equal;
+4. the swarm's main path: ``python -m repro_torch.launch.swarm --full
+   --rounds 3`` (the showcase: protocol-125m at full width, 10 nodes, QSGD
+   wire, CenteredClip, audits), with finite loss, only Byzantine nodes
+   slashed and a conserving ledger;
+5. one more full-width round on each config that reaches the other swarm
    kernels: krum (krum_d2), the compressed-wire scenario's mean over a
    64-level QSGD wire (decode-accumulate), sign_flip_minority's adaptive-τ
-   CenteredClip.  Each of these runs, and the showcase's, has launch
-   counters of its own: zeroed just before it, read just after it, and
-   held to the launches that path must make (``EXPECTED_LAUNCHES``);
-5. fused against unfused: one showcase round from the same state with the
+   CenteredClip;
+6. fused against unfused: one showcase round from the same state with the
    same draws; equal audits and masks, close aggregate and params; then two
    more showcase rounds timed, and one under torch.profiler (device time by
    kernel, the device's busy share);
-6. time each kernel, its plain version and the matching PyTorch library
-   call where one exists, at the full-width shapes.
+7. the serving path (``protocol_serve``): ``python -m
+   repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
+   --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
+   shards, redundancy 2, max fraction 0.35): refused without credentials,
+   served logits bit-equal to ``Model.prefill(params)`` with the full swarm
+   and with one node offline, ``ExtractionError`` at 2 nodes, a 3-node
+   coalition's extraction far from the true logits; then ``decode`` of 4
+   prompts of 4,160 tokens, 32 new tokens, on the reassembled params (equal
+   to the true ones leaf for leaf): the 4,096-slot ring wraps 64 steps
+   before the prompt ends;
+7b. the ring-buffer decode against the kernel prefill across the wrap,
+   teacher-forced on the same prompts: each layer's update over the 128
+   stepped positions around the wrap, and the last position's logits,
+   within 1e-2 relative L2;
+8. the kernel route against the ``_swa`` route (``use_pallas_kernels``
+   off) on the same full-width prefill: teacher-forced, each layer's update
+   and the last layer's logits within 1e-2 relative L2; free-running, the
+   kernel route's logit gap held to at most twice the gap between two
+   routes without the kernel (``_swa`` and ``swa_attention_plain``), which
+   shows how far the random model's chaos parts any two float orders;
+9. time each kernel, its plain version and the matching PyTorch library
+   call where one exists, at the main paths' shapes.
+
+Each driven path (phases 4, 5 and 7) has launch counters of its own:
+zeroed just before it, read just after it, and held to the launches that
+path must make (``EXPECTED_LAUNCHES``).
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
 card's ``name, power.limit`` from nvidia-smi, and as the last line
@@ -54,6 +81,16 @@ SHOWCASE_ROUNDS = 3
 BUCKET, LEVELS_WIRE = 512, 64   # compressed_wire's QSGD wire
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 dense tensor cores
+# the serving path: h2o-danube-1.8b's prefill at the repo's prefill_32k length
+SWA_SHAPE = dict(b=1, s=32_768, hq=32, hkv=8, hd=80, window=4096)
+DANUBE_LAYERS = 24
+SERVE_PREFILLS = 4              # served full swarm, one node offline, the true
+                                # params and the coalition's: 24 launches each
+# decode: the prompt overruns the 4,096-slot ring, which wraps 64 steps
+# before the prompt ends; phase 7b steps WRAP_STEPS positions around it
+DECODE_PROMPTS, DECODE_LEN, DECODE_NEW = 4, SWA_SHAPE["window"] + 64, 32
+WRAP_STEPS = 128
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own)
 KERNELS = {
@@ -66,6 +103,8 @@ KERNELS = {
     "qsgd_decode_accumulate": ("src/repro_torch/csrc/qsgd_decode.cu",
                                "src/repro/kernels/qsgd_decode/kernel.py:41",
                                "compressed_wire"),
+    "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
+                      "src/repro/kernels/swa_attention/kernel.py:65", "protocol_serve"),
 }
 
 # launches each driven path must make (kernels not named: none).  A
@@ -76,6 +115,7 @@ EXPECTED_LAUNCHES = {
     "krum": {"masked_krum_d2": 1},
     "compressed_wire": {"qsgd_decode_accumulate": 1},
     "sign_flip_minority": {"masked_median": 1, "masked_cc_iter": 3},
+    "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
 }
 
 
@@ -167,11 +207,12 @@ class Smoke:
         just after it to ``EXPECTED_LAUNCHES[path]``."""
         from repro_torch.kernels.masked_agg import ops as magg
         from repro_torch.kernels.qsgd_decode import ops as qdec
-        for d in (magg.LAUNCHES, qdec.LAUNCHES):
+        from repro_torch.kernels.swa_attention import ops as swa
+        for d in (magg.LAUNCHES, qdec.LAUNCHES, swa.LAUNCHES):
             for k in d:
                 d[k] = 0
         out = fn()
-        got = {**magg.LAUNCHES, **qdec.LAUNCHES}
+        got = {**magg.LAUNCHES, **qdec.LAUNCHES, **swa.LAUNCHES}
         want = {k: EXPECTED_LAUNCHES[path].get(k, 0) for k in got}
         print(f"  launches on {path}: {json.dumps(got)}", flush=True)
         check(got == want, f"{path}: launches {got}, expected {want}")
@@ -182,16 +223,26 @@ class Smoke:
     def run(self):
         torch = self.torch
         self.phase("1 build kernels", self.build_kernels)
-        self.phase("2 kernels vs plain", self.kernels_vs_plain)
+        self.phase("2 swarm kernels vs plain", self.kernels_vs_plain)
+        self.phase("3 swa_attention vs plain", self.swa_vs_plain)
         torch.cuda.reset_peak_memory_stats()
-        main_out = self.phase("3 main path (showcase, full width)", self.main_path)
-        self.phase("4 other configs (full width)", lambda: self.other_configs(main_out))
-        self.phase("5 fused vs unfused", lambda: self.fused_vs_unfused(main_out))
-        self.phase("5b showcase rounds timed and profiled",
+        main_out = self.phase("4 main path (showcase, full width)", self.main_path)
+        self.phase("5 other configs (full width)", lambda: self.other_configs(main_out))
+        self.phase("6 fused vs unfused", lambda: self.fused_vs_unfused(main_out))
+        self.phase("6b showcase rounds timed and profiled",
                    lambda: self.profile_rounds(main_out))
         del main_out
         self.free()
-        rows = self.phase("6 timings", self.timings)
+        torch.cuda.reset_peak_memory_stats()
+        serve_out = self.phase("7 serving path (protocol_serve, h2o-danube-1.8b full width)",
+                               self.protocol_serve)
+        self.phase("7b ring decode vs kernel prefill across the wrap (full width)",
+                   lambda: self.decode_vs_prefill(serve_out))
+        self.phase("8 kernel route vs _swa route (full width)",
+                   lambda: self.swa_route_gap(serve_out))
+        del serve_out
+        self.free()
+        rows = self.phase("9 timings", self.timings)
         print(json.dumps({"kernels": rows}), flush=True)
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,
@@ -302,6 +353,43 @@ class Smoke:
             print(f"  decode_accumulate ok: N={n} L={nb * BUCKET}", flush=True)
             del codes, norms
             self.free()
+
+    def swa_inputs(self, b, s, hq, hkv, hd, dtype, seed=0):
+        g = self.torch.Generator(device=self.dev).manual_seed(seed)
+        return tuple(self.torch.randn(shape, generator=g, device=self.dev).to(dtype)
+                     for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+    def swa_vs_plain(self):
+        torch = self.torch
+        from repro_torch.kernels.swa_attention import ops as swa
+        main = tuple(SWA_SHAPE.values())
+        cases = [(main, torch.bfloat16)] + [
+            (shape, dt) for shape in (
+                (2, 1000, 8, 2, 64, 17),      # S not a multiple of 64, window < a tile
+                (1, 4099, 16, 4, 80, 1000),   # window not a multiple of a tile
+                (2, 777, 4, 4, 128, 4096),    # window >= S
+                (1, 2000, 8, 1, 128, 64))     # window == one tile, G = 8
+            for dt in (torch.float32, torch.bfloat16)]
+        for (b, s, hq, hkv, hd, window), dt in cases:
+            q, k, v = self.swa_inputs(b, s, hq, hkv, hd, dt)
+            out = swa.swa_attention_kernel(q, k, v, window=window)
+            again = swa.swa_attention_kernel(q, k, v, window=window)
+            ref = swa.swa_attention_plain(q, k, v, window=window)
+            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            tag = f"B={b} S={s} H={hq}/{hkv} hd={hd} W={window} {dt}"
+            check(torch.equal(out.view(bits), again.view(bits)),
+                  f"swa_attention: two launches differ ({tag})")
+            tol = 2e-2 if dt == torch.bfloat16 else 2e-4
+            o, r = out.float(), ref.float()
+            err = float((o - r).abs().max())
+            check(bool(torch.isfinite(o).all()) and bool(
+                ((o - r).abs() <= tol + tol * r.abs()).all()),
+                f"swa_attention beyond {tol} of its plain version ({tag}): {err:.3e}")
+            if (b, s, hq, hkv, hd, window) == main:
+                self.record_err("swa_attention", o, r)
+            print(f"  swa_attention ok: {tag}, max abs err {err:.3e}", flush=True)
+            del q, k, v, out, again, ref, o, r
+        self.free()
 
     def main_path(self):
         torch = self.torch
@@ -420,6 +508,214 @@ class Smoke:
         for e in sorted(events, key=self_dev, reverse=True)[:14]:
             print(f"    {self_dev(e):9.2f} ms  x{e.count:<5d} {e.key[:90]}", flush=True)
 
+    def protocol_serve(self):
+        """The serving path at full width, on counters of its own; returns
+        the launcher's results and the decode's prompts for phases 7b and 8."""
+        torch = self.torch
+        from repro_torch.core.protocol import CredentialError, ExtractionError
+        from repro_torch.launch import protocol_inference as launch
+        from repro_torch.models.attention import cache_length
+
+        def drive():
+            out = launch.main(["--arch", "h2o-danube-1.8b", "--full", "--seq",
+                               str(SWA_SHAPE["s"]), "--batch", str(SWA_SHAPE["b"])])
+            g = torch.Generator(device=self.dev).manual_seed(5)
+            prompts = torch.randint(0, out["model"].cfg.vocab_size,
+                                    (DECODE_PROMPTS, DECODE_LEN), generator=g,
+                                    device=self.dev)
+            gen, stats = out["server"].decode("customer", prompts, DECODE_NEW)
+            return out, prompts, gen, stats
+
+        out, prompts, gen, stats = self.counted("protocol_serve", drive)
+        out["prompts"] = prompts
+        cfg = out["model"].cfg
+        check(cfg.use_pallas_kernels and cfg.sliding_window == SWA_SHAPE["window"]
+              and cfg.param_count() == 1_831_201_280, "not full-width h2o-danube-1.8b")
+        check(isinstance(out["refused"], CredentialError), "served without credentials")
+        logits, ref = out["logits"], out["ref"]
+        check(tuple(logits.shape) == (SWA_SHAPE["b"], cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), "served logits not finite or misshapen")
+        check(torch.equal(logits, ref), "served logits not bit-equal to Model.prefill(params)")
+        check(torch.equal(out["logits_online"], ref),
+              "logits with node3 offline not bit-equal to Model.prefill(params)")
+        check(isinstance(out["collapsed"], ExtractionError)
+              and "missing shard ids" in str(out["collapsed"]),
+              "a swarm of 2 nodes served, or did not name the missing shards")
+        check(out["extract_rel"] > 0.1, f"a 3-node coalition's logits are close to the "
+                                        f"true ones (relative L2 {out['extract_rel']:.3e})")
+        served = out["server"]._params_cache[frozenset(launch.NODES)]
+        check(all(torch.equal(served[k], t) for k, t in out["params"].items()),
+              "the params the server decoded with differ from the true ones")
+        check(cache_length(DECODE_LEN + DECODE_NEW, cfg.sliding_window) < DECODE_LEN,
+              "the decode's ring does not wrap")
+        check(tuple(gen.shape) == (DECODE_PROMPTS, DECODE_NEW)
+              and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+              "decode tokens misshapen or outside the vocabulary")
+        self.profile_decode_step(out)
+        print(f"  protocol_serve: prefill of {SWA_SHAPE['b']} x {SWA_SHAPE['s']} tokens "
+              f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {DECODE_LEN} -> "
+              f"{DECODE_NEW} new: {stats.tok_per_s:.1f} tok/s (prefill by stepping "
+              f"{stats.prefill_s:.3f} s, decode {stats.decode_s:.3f} s); coalition "
+              f"logits relative L2 {out['extract_rel']:.3f}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del out["server"]
+        return out
+
+    def profile_decode_step(self, out):
+        """One decode step at the decode phase's shape under torch.profiler:
+        kernels launched, device time, host time."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        model, params = out["model"], out["params"]
+        tok = torch.zeros((DECODE_PROMPTS, 1), dtype=torch.long, device=self.dev)
+        with torch.inference_mode():
+            cache = model.init_cache(DECODE_PROMPTS, DECODE_LEN + DECODE_NEW, self.dev)
+            for _ in range(2):
+                _, cache = model.decode_step(params, tok, cache)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.decode_step(params, tok, cache)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum((getattr(e, "self_device_time_total", None)
+                      or getattr(e, "self_cuda_time_total", 0) or 0) for e in events) / 1e3
+        launches = sum(e.count for e in events)
+        print(f"  one decode step ({DECODE_PROMPTS} sequences, profiled): {launches} device "
+              f"ops, {dev_ms:.2f} ms of device time in {host_ms:.2f} ms", flush=True)
+
+    def rel(self, a, b):
+        """Relative L2 of ``a`` against ``b``, in float32."""
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def last_logits(self, params, cfg, h):
+        """The logits (B, V) of the last position of hidden states h."""
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import rms_norm
+        h = rms_norm(h, params["ln_f"], cfg.norm_eps)[:, -1].float()
+        return self.torch.einsum("bd,dv->bv", h, T.unembed_of(params).float())
+
+    def decode_vs_prefill(self, out):
+        """The ring-buffer decode against the kernel prefill, teacher-forced
+        across the wrap, on phase 7's prompts.  For each layer the ring is
+        filled here (at slot pos % 4096, not by ``cache_insert``) with the
+        keys and values of the positions before the last WRAP_STEPS,
+        computed from the prefill's input to the layer; then
+        ``layer_decode`` steps the last WRAP_STEPS positions, each from the
+        prefill's input at that position: 64 fill the ring's last slots and
+        64 overwrite its first.  Free-running the random model is chaotic
+        (phase 8), so each layer is held on its own."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.models import transformer as T
+        from repro_torch.models.attention import cache_length
+        from repro_torch.models.common import rms_norm
+        model, params, prompts = out["model"], out["params"], out["prompts"]
+        cfg = model.cfg
+        b, s = prompts.shape
+        lc = cache_length(s, cfg.sliding_window)
+        start = s - WRAP_STEPS
+        check(start < lc < s, "the stepped positions do not cross the ring's wrap")
+        positions = torch.arange(s, device=self.dev).expand(b, s)
+        slots = torch.arange(start, device=self.dev) % lc
+        before, after = [], []            # per layer: positions < lc, >= lc
+        with torch.inference_mode():
+            cache = model.init_cache(b, s, self.dev)
+            x = F.embedding(prompts, params["embed"])
+            for i, lp in enumerate(T._per_layer(params, cfg)):
+                y = T._layer_apply(lp, cfg, x, positions)           # the kernel prefill
+                h = rms_norm(x[:, :start], lp["ln_attn"], cfg.norm_eps)
+                _, k, v = T._qkv(lp, cfg, h, positions[:, :start])
+                kc, vc = cache["k"][i], cache["v"][i]
+                kc[:, slots], vc[:, slots] = k, v
+                stepped = torch.cat([T.layer_decode(lp, cfg, x[:, t:t + 1], kc, vc, t)
+                                     for t in range(start, s)], dim=1)
+                base, want = x[:, start:].float(), y[:, start:].float()
+                got, cut = stepped.float() - base, lc - start
+                before.append(self.rel(got[:, :cut], want[:, :cut] - base[:, :cut]))
+                after.append(self.rel(got[:, cut:], want[:, cut:] - base[:, cut:]))
+                x = y
+            gap = self.rel(self.last_logits(params, cfg, stepped),
+                           self.last_logits(params, cfg, x))
+        print(f"  decode vs prefill, teacher-forced over positions {start}-{s - 1} "
+              f"(ring of {lc}): layer updates within {max(before):.3e} relative L2 "
+              f"before the wrap and {max(after):.3e} after it (worst of {len(after)} "
+              f"layers), last position's logits {gap:.3e}", flush=True)
+        check(max(before + after) <= 1e-2 and gap <= 1e-2,
+              f"decode and prefill differ beyond 1e-2 (layers {max(before + after):.3e}, "
+              f"logits {gap:.3e})")
+
+    def swa_route_gap(self, out):
+        """The served prefill's kernel route against the ``_swa`` route
+        (``use_pallas_kernels`` off: float32 per q block).  Held teacher-
+        forced: at each of the 24 layers both routes take the kernel route's
+        input, and the layer's update and the last layer's logits must agree
+        within 1e-2 relative L2.  Free-running, the random model is chaotic
+        (the reference's init gives q.k scores of std ~60), so any two float
+        orders part after a few layers.  A third route without the kernel,
+        ``swa_attention_plain`` in its place, measures that: the kernel
+        route's free-running gap to ``_swa`` is held to at most twice the
+        gap between the two routes without it."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from dataclasses import replace
+        from repro_torch.core.serving import device_clock
+        from repro_torch.kernels.swa_attention import ops as swa
+        from repro_torch.models import attention as A
+        from repro_torch.models import transformer as T
+        from repro_torch.models.model import build_model
+
+        cfg_k = out["model"].cfg
+        cfg_s = replace(cfg_k, use_pallas_kernels=False)
+        params, tokens = out["params"], out["batch"]["tokens"]
+        kernel_entry = A.swa_attention
+
+        def plain_layer(lp, h):                   # swa_attention_plain for the kernel
+            A.swa_attention = swa.swa_attention_plain
+            try:
+                return T._layer_apply(lp, cfg_k, h, positions)
+            finally:
+                A.swa_attention = kernel_entry
+
+        with torch.inference_mode():
+            t0 = device_clock(self.dev)
+            free = build_model(cfg_s).prefill(params, out["batch"])
+            dt = device_clock(self.dev) - t0
+            x = y = z = F.embedding(tokens, params["embed"])
+            positions = torch.arange(tokens.shape[1], device=self.dev).expand(tokens.shape)
+            gaps, free_gaps, witness_gaps = [], [], []
+            for lp in T._per_layer(params, cfg_k):
+                a = T._layer_apply(lp, cfg_k, x, positions)
+                b = T._layer_apply(lp, cfg_s, x, positions)
+                y = T._layer_apply(lp, cfg_s, y, positions)     # the _swa route, free
+                z = plain_layer(lp, z)                          # the plain route, free
+                gaps.append(self.rel(a.float() - x.float(), b.float() - x.float()))
+                free_gaps.append(self.rel(a, y))
+                witness_gaps.append(self.rel(z, y))
+                x = a
+            la, lb = (self.last_logits(params, cfg_k, h) for h in (a, b))
+            free_kernel = self.rel(out["ref"], free)
+            free_witness = self.rel(self.last_logits(params, cfg_k, z), free)
+        gap = self.rel(la, lb)
+        print(f"  kernel route vs _swa route, teacher-forced: layer updates within "
+              f"{max(gaps):.3e} relative L2 (worst of {len(gaps)} layers), logits "
+              f"{gap:.3e}; the kernel route's logits equal the served ones: "
+              f"{bool(torch.equal(la, out['ref']))}", flush=True)
+        print(f"  free-running: kernel vs _swa logits {free_kernel:.3e}, hidden states "
+              f"after each layer {[float(f'{g:.2e}') for g in free_gaps]}", flush=True)
+        print(f"  free-running, no kernel on either side: swa_attention_plain vs _swa "
+              f"logits {free_witness:.3e}, hidden states after each layer "
+              f"{[float(f'{g:.2e}') for g in witness_gaps]}; _swa prefill {dt:.3f} s "
+              f"vs kernel route {out['prefill_s']:.3f} s", flush=True)
+        check(max(gaps) <= 1e-2 and gap <= 1e-2,
+              f"kernel and _swa routes differ beyond 1e-2 (layers {max(gaps):.3e}, "
+              f"logits {gap:.3e})")
+        check(free_kernel <= max(1e-2, 2 * free_witness),
+              f"free-running, the kernel route parts from _swa ({free_kernel:.3e}) more "
+              f"than twice as far as two routes without the kernel ({free_witness:.3e})")
+
     def time_ms(self, fn, reps):
         torch = self.torch
         fn()
@@ -478,14 +774,39 @@ class Smoke:
             lambda: qdec.decode_accumulate_plain(codes, norms, w, levels=LEVELS_WIRE,
                                                  bucket_size=BUCKET),
             None, n * nb * BUCKET + n * nb * f32 + n * f32 + nb * BUCKET * f32, 0))
+        del codes, norms, w
+        self.free()
+        rows.append(self.swa_row())
         return rows
 
-    def row(self, name, kern, plain, lib, nbytes, flops):
+    def swa_row(self):
+        """swa_attention at the serving prefill's shape.  The library call is
+        one scaled_dot_product_attention with the band as a boolean mask."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.swa_attention import ops as swa
+        b, s, hq, hkv, hd, window = SWA_SHAPE.values()
+        q, k, v = self.swa_inputs(b, s, hq, hkv, hd, torch.bfloat16, seed=3)
+        i = torch.arange(s, device=self.dev)
+        band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))          # (B, H, S, hd)
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                     enable_gqa=True)
+        diff = (lib().transpose(1, 2).float()
+                - swa.swa_attention_kernel(q, k, v, window=window).float()).abs().max()
+        print(f"  sdpa vs the kernel: max abs diff {float(diff):.3e}", flush=True)
+        pairs = sum(min(j + 1, window) for j in range(s))        # this run's band
+        nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)  # q, o, k, v in bf16
+        return self.row("swa_attention", lambda: swa.swa_attention_kernel(q, k, v, window=window),
+                        lambda: swa.swa_attention_plain(q, k, v, window=window), lib,
+                        nbytes, 4 * hd * pairs * b * hq, BF16_FLOP_PER_S)
+
+    def row(self, name, kern, plain, lib, nbytes, flops, flop_rate=FP32_FLOP_PER_S):
         ms = self.time_ms(kern, 10)
         plain_ms = self.time_ms(plain, 2)
         lib_ms = self.time_ms(lib, 2) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        t_ops = flops / flop_rate * 1e3
         src, replaces, path = KERNELS[name]
         # launches: on the kernel's own path; by path: every driven path
         by_path = {p: c[name] for p, c in self.launches.items() if c[name]}

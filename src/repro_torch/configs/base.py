@@ -74,9 +74,11 @@ class ModelConfig:
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"             # activations/params compute dtype
 
-    # Pallas kernel compute paths (INFERENCE-ONLY: the kernels define no
-    # custom VJP, so jax.grad through them fails — the training path keeps
-    # the pure-jnp twins).  On CPU the kernels run in interpret mode.
+    # Kernel compute paths (INFERENCE-ONLY): when set, sliding-window
+    # attention of a full sequence runs the CUDA kernel on CUDA tensors and
+    # its plain version on CPU tensors (``kernels/swa_attention/ops.py``).
+    # Neither has a backward, so the wrapper raises on inputs that require
+    # grad; training keeps the flag off and takes ``models.attention._swa``.
     use_pallas_kernels: bool = False
 
     # training

@@ -11,7 +11,7 @@ so the functions walk D in column chunks where a whole-stack temporary
 would not fit (``_CHUNK`` elements at a time).
 
 Ported so far: mean, krum, centered_clip.  Median, trimmed mean and
-multi-krum wait for the campaign slice (ROADMAP queue 1, item 1).
+multi-krum wait for the campaign slice (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 

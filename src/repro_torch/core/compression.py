@@ -11,7 +11,7 @@ Given the same bucket norms and uniforms, the codes equal the reference's
 exactly: every expression up to the code integers is the reference's, op
 for op, in float32.  The norms themselves are float reductions whose order
 differs from XLA's.  Top-k and PowerSGD wait for their slice (ROADMAP
-queue 1, item 4).
+queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -99,7 +99,7 @@ def roundtrip(kind: Optional[str], u: Optional[torch.Tensor], x: torch.Tensor,
         return qsgd_decompress(qsgd_compress(x, u, **kwargs))
     if kind in ("topk", "powersgd"):
         raise NotImplementedError(f"the {kind!r} wire waits for its slice "
-                                  "(ROADMAP queue 1, item 4)")
+                                  "(ROADMAP queue 1, item 6)")
     raise ValueError(f"unknown wire codec: {kind!r} "
                      f"(roundtrip carries: {WIRE_CODECS})")
 

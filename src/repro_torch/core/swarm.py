@@ -24,8 +24,8 @@ auditor's recomputation, so honest nodes pass their audits.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 queue 1 item): multi-aggregator routing, ``scan_rounds`` / ``run_campaign``
-(1), ``SequentialSwarm`` (3), custody lanes (5), decentralized topologies
-(6), bounded staleness (7) and the economy lane (8).
+(3), ``SequentialSwarm`` (5), custody lanes (7), decentralized topologies
+(8), bounded staleness (9) and the economy lane (10).
 """
 from __future__ import annotations
 
@@ -96,11 +96,11 @@ class SwarmConfig:
     economy: Optional[Any] = None
 
     def __post_init__(self):
-        waiting = [("topology", self.topology is not None, 6),
-                   ("churn_coupled", self.churn_coupled, 6),
-                   ("custody", self.custody is not None, 5),
-                   ("staleness_bound", self.staleness_bound != 0, 7),
-                   ("economy", self.economy is not None, 8)]
+        waiting = [("topology", self.topology is not None, 8),
+                   ("churn_coupled", self.churn_coupled, 8),
+                   ("custody", self.custody is not None, 7),
+                   ("staleness_bound", self.staleness_bound != 0, 9),
+                   ("economy", self.economy is not None, 10)]
         for name, set_, item in waiting:
             if set_:
                 raise NotImplementedError(
@@ -239,10 +239,10 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     """
     if not isinstance(aggregator, str):
         raise NotImplementedError("multi-aggregator routing waits for the "
-                                  "campaign slice (ROADMAP queue 1, item 1)")
+                                  "campaign slice (ROADMAP queue 1, item 3)")
     if compression_kind not in compression.WIRE_CODECS:
         raise NotImplementedError(f"the {compression_kind!r} wire waits for "
-                                  "its slice (ROADMAP queue 1, item 4)")
+                                  "its slice (ROADMAP queue 1, item 6)")
     agg_kwargs = dict(agg_kwargs or {})
     ckw = dict(compression_kwargs or {})
     layout = layout_of(params_template)
@@ -480,7 +480,7 @@ def make_swarm(loss_fn, params, optimizer, nodes: List[NodeSpec], cfg: SwarmConf
     """Build a swarm with the requested engine (only "batched" so far)."""
     if engine == "sequential":
         raise NotImplementedError("SequentialSwarm waits for its slice "
-                                  "(ROADMAP queue 1, item 3)")
+                                  "(ROADMAP queue 1, item 5)")
     if engine != "batched":
         raise ValueError(f"unknown engine: {engine!r} (known: ['batched', "
                          "'sequential'])")

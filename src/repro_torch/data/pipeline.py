@@ -9,7 +9,8 @@ states and branch choices come from the port's key schedule
 CPU and then moved, so a batch is the same on every device.
 
 Only the LM family is ported; the VLM and audio branches of
-``model_batch`` wait for their model families (ROADMAP queue 1, item 9).
+``model_batch`` wait for their model families (ROADMAP queue 1, items 1,
+2 and 11).
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def model_batch(mcfg: ModelConfig, cfg: DataConfig, step: int, *, shard: int = 0
     if mcfg.family != DENSE:
         raise NotImplementedError(
             f"model_batch for the {mcfg.family!r} family waits for its model "
-            "slice (ROADMAP queue 1, item 9)")
+            "slice (ROADMAP queue 1, items 1, 2 and 11)")
     return lm_batch(cfg, step, shard=shard, num_shards=num_shards,
                     device=device)
 

@@ -13,7 +13,7 @@ a QSGD wire (127 levels, buckets of 512), CenteredClip aggregation
 AdamW at lr 5e-3 on sequences of 128 tokens, a global batch of 2N.  It
 prints the reference's columns and ledger report.  The reference ends with
 a custody-sharded checkpoint; that waits for the custody slice (ROADMAP
-queue 1, item 5) and is skipped here.
+queue 1, item 7) and is skipped here.
 """
 from __future__ import annotations
 

@@ -1,24 +1,53 @@
-"""Full causal GQA attention (twin of ``repro/models/attention.py:32``).
+"""GQA attention with an optional sliding window, and the KV-cache decode
+with a ring buffer (twin of ``repro/models/attention.py``).
 
-The reference computes full attention as a blockwise online softmax in
-float32 and calls no kernel on this path; the port computes the same
-function as one plain einsum-softmax-einsum in float32 (at the sequence
-lengths this slice runs there is a single block, where the two coincide).
-Sliding-window attention and the ring-buffer decode wait for their slices.
+Layouts are the reference's: q (B, S, Hq, hd), k and v (B, S, Hkv, hd).
+
+- Full causal attention: the reference computes it as a blockwise online
+  softmax in float32; the port computes the same function as one plain
+  einsum-softmax-einsum in float32 (at the sequence lengths it runs full
+  attention there is a single block, where the two coincide).
+- Sliding window: with ``use_pallas`` and Sq == Skv, the kernel of
+  ``kernels/swa_attention`` (CUDA on the card, its plain version on the
+  CPU); otherwise :func:`_swa`, the reference's banded float32 twin, which
+  also serves training.
+- Decode: one new token against a cache of ``cache_length`` slots, a ring
+  (slot pos % L) when the model has a window.  The cache is updated in
+  place.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.swa_attention.ops import swa_attention
 
 NEG_INF = -1e30
 
 
+def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, S, Hq, hd) -> (B, S, Hkv, G, hd)."""
+    b, s, hq, hd = q.shape
+    return q.reshape(b, s, hkv, hq // hkv, hd)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, window: Optional[int] = None,
+              q_block: int = 1024, use_pallas: bool = False) -> torch.Tensor:
     """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(b, sq, hkv, hq // hkv, hd).float()
+    if window is not None:
+        if use_pallas and sq == skv:
+            return swa_attention(q, k, v, window=window)
+        q_block = min(q_block, sq)
+        while sq % q_block:
+            q_block //= 2
+        return _swa(_grouped(q, hkv), k, v, window=window, q_block=q_block,
+                    scale=hd ** -0.5)
+    qg = _grouped(q, hkv).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * hd ** -0.5
     if causal:
         qpos = torch.arange(sq, device=q.device)
@@ -30,4 +59,77 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = torch.sum(p, dim=-1)                                  # (b, k, g, q)
     pv = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     out = pv / torch.clamp(l.permute(0, 3, 1, 2), min=1e-30)[..., None]
+    return out.reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def _swa(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
+         q_block: int, scale: float) -> torch.Tensor:
+    """Banded causal attention: each q block sees the previous ``window``
+    keys.  k and v are padded on the left by ``window`` so every block's
+    slice of ``window + q_block`` keys starts at or after 0."""
+    b, sq, hkv, g, hd = qg.shape
+    span = window + q_block
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    out = torch.empty((b, sq, hkv, g, hd), dtype=k.dtype, device=k.device)
+    for start in range(0, sq, q_block):       # start in padded coords == qpos - window
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, start:start + q_block].float(),
+                         kp[:, start:start + span].float()) * scale
+        qpos = start + torch.arange(q_block, device=k.device)
+        kpos = start + torch.arange(span, device=k.device) - window
+        mask = ((qpos[:, None] >= kpos[None, :])
+                & (qpos[:, None] - kpos[None, :] < window) & (kpos[None, :] >= 0))
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=k.device))
+        p = torch.softmax(s, dim=-1)
+        out[:, start:start + q_block] = torch.einsum(
+            "bkgqs,bskd->bqkgd", p, vp[:, start:start + span].float())
+    return out.reshape(b, sq, hkv * g, hd)
+
+
+# -- decode ------------------------------------------------------------------
+def cache_length(seq_len: int, window: Optional[int]) -> int:
+    return seq_len if window is None else min(seq_len, window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: int, *, ring: bool) -> torch.Tensor:
+    """q (B, 1, Hq, hd) against a cache (B, L, Hkv, hd) that already holds
+    the new token; ``pos`` is the new token's absolute position."""
+    b, _, hq, hd = q.shape
+    l, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = _grouped(q, hkv)[:, 0].float()                         # (B, Hkv, G, hd)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * hd ** -0.5
+    if not (ring and pos + 1 >= l):           # a full ring: every slot is valid
+        valid = torch.arange(l, device=q.device) <= pos
+        s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor, pos: int, *, ring: bool):
+    """Write one token's K/V at slot ``pos`` (ring: ``pos % L``), in place."""
+    slot = pos % k_cache.shape[1] if ring else pos
+    k_cache[:, slot:slot + 1] = k_new
+    v_cache[:, slot:slot + 1] = v_new
+    return k_cache, v_cache
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """Naive O(S^2) oracle, for the tests."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    s = torch.einsum("bqkgd,bskd->bkgqs", _grouped(q, hkv).float(), k.float()) * hd ** -0.5
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= qpos - kpos < window
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, hq, hd).to(q.dtype)

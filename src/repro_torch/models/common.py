@@ -5,6 +5,7 @@ Plain functions on tensors, in the reference's layouts: activations are
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional, Sequence
 
 import numpy as np
@@ -47,11 +48,18 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
 
 
+@lru_cache(maxsize=16)
+def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` as float32 on ``device``, copied there once: a
+    copy from host memory waits for the device's queue, and a decode step
+    applies RoPE twice a layer."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
-                            device=x.device)                      # (hd/2,)
+    freqs = _rope_freqs_on(hd, float(theta), x.device)           # (hd/2,)
     angles = positions[..., None].float() * freqs                # (..., S, hd/2)
     angles = angles[..., None, :]                                # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

@@ -6,7 +6,9 @@ module's own surface is thin: ``init`` draws a fresh param dict,
 ``load_params`` registers a dict as the module's parameters (nested, so
 ``named_parameters()`` yields ``layers.attn.wq`` ...), ``loss`` is the
 functional loss and ``forward(batch)`` the loss on the module's own
-parameters.
+parameters.  Serving: ``prefill``, ``init_cache``, ``decode_step`` and
+``decode_scan`` (the reference's scanned multi-token decode, here a loop
+over ``decode_step``: the same math, and the logits at every position).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Dict
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.convert import flat_order
@@ -49,6 +51,39 @@ class Model(nn.Module):
 
     def forward(self, batch):
         return self.loss(self.param_dict(), batch)
+
+    # -- serving -----------------------------------------------------------------
+    def prefill(self, params: Params, batch) -> torch.Tensor:
+        return transformer.prefill(params, self.cfg, batch)
+
+    def init_cache(self, batch: int, seq_len: int, device: DeviceLike = None):
+        return transformer.init_cache(self.cfg, batch, seq_len, resolve_device(device))
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, cache):
+        return transformer.decode_step(params, self.cfg, tokens, cache)
+
+    def decode_scan(self, params: Params, tokens: torch.Tensor, cache):
+        """Feed ``tokens`` (B, T) one position at a time through
+        ``decode_step``: per-position logits (B, T, V) and the advanced
+        cache."""
+        logits = []
+        for t in range(tokens.shape[1]):
+            lg, cache = self.decode_step(params, tokens[:, t:t + 1], cache)
+            logits.append(lg[:, 0])
+        return torch.stack(logits, dim=1), cache
+
+    def concrete_batch(self, seed: int, batch: int, seq: int,
+                       device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+        """A small concrete batch of random tokens and labels (dense family)."""
+        if self.cfg.family != DENSE:
+            raise NotImplementedError(
+                f"concrete_batch for the {self.cfg.family!r} family waits for its "
+                "model slice (ROADMAP queue 1, items 1, 2 and 11)")
+        g = torch.Generator().manual_seed(seed)
+        out = {"tokens": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g),
+               "labels": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g)}
+        dev = resolve_device(device)
+        return {k: t.to(dev) for k, t in out.items()}
 
 
 def build_model(cfg: ModelConfig) -> Model:

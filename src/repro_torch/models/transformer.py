@@ -4,8 +4,14 @@ Parameters are a flat ``{name: tensor}`` dict whose names mirror the
 reference's nested tree (``layers.attn.wq`` is ``params["layers"]["attn"]
 ["wq"]`` there).  Layer weights are **stacked over layers** as in JAX —
 ``layers.attn.wq`` is one (L, d, H, hd) tensor — and the layers are applied
-in a Python loop.  Only the dense family is ported; MoE, VLM and the other
-families wait for their slices (ROADMAP queue 1, item 9).
+in a Python loop.  Only the dense family is ported, with full or
+sliding-window attention; rwkv6 and zamba2 wait for their slices (ROADMAP
+queue 1, items 1 and 2), MoE, VLM and the others for item 11.
+
+Serving: :func:`prefill` is the full forward returning the last position's
+logits; :func:`decode_step` feeds one token per sequence through a KV cache
+of ``attention.cache_length`` slots (a ring buffer when the model has a
+window), updating the cache's tensors in place.
 """
 from __future__ import annotations
 
@@ -15,7 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import DENSE, ModelConfig
-from repro_torch.models.attention import attention
+from repro_torch.models.attention import (attention, cache_insert, cache_length,
+                                          decode_attention)
 from repro_torch.models.common import (apply_rope, chunked_softmax_xent,
                                        dense_init, embed_init, rms_norm, swiglu)
 from repro_torch.random import _INIT, generator
@@ -31,10 +38,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != DENSE or cfg.sliding_window is not None:
+    if cfg.family != DENSE:
         raise NotImplementedError(
-            f"{cfg.name}: only dense full-attention models are ported so far "
-            "(other families and sliding windows: ROADMAP queue 1, item 9)")
+            f"{cfg.name}: only dense models are ported so far (rwkv6: ROADMAP "
+            "queue 1, item 1; zamba2: item 2; the other families: item 11)")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
@@ -83,15 +90,35 @@ def unembed_of(params: Params) -> torch.Tensor:
     return params["unembed"] if "unembed" in params else params["embed"].T
 
 
-def _layer_apply(lp: Params, cfg: ModelConfig, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+def _qkv(lp: Params, cfg: ModelConfig, h: torch.Tensor, positions: torch.Tensor):
     q = torch.einsum("bsd,dhe->bshe", h, lp["wq"])
     k = torch.einsum("bsd,dhe->bshe", h, lp["wk"])
     v = torch.einsum("bsd,dhe->bshe", h, lp["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=True)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _layer_apply(lp: Params, cfg: ModelConfig, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    q, k, v = _qkv(lp, cfg, h, positions)
+    o = attention(q, k, v, causal=True, window=cfg.sliding_window,
+                  use_pallas=cfg.use_pallas_kernels)
+    x = x + torch.einsum("bshe,hed->bsd", o, lp["wo"])
+    h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
+    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def layer_decode(lp: Params, cfg: ModelConfig, x: torch.Tensor, kcache: torch.Tensor,
+                 vcache: torch.Tensor, pos: int) -> torch.Tensor:
+    """One-token layer step.  x (B, 1, d); kcache/vcache (B, L, Hkv, hd),
+    updated in place."""
+    ring = cfg.sliding_window is not None
+    h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    q, k, v = _qkv(lp, cfg, h, positions)
+    cache_insert(kcache, vcache, k, v, pos, ring=ring)
+    o = decode_attention(q, kcache, vcache, pos, ring=ring)
     x = x + torch.einsum("bshe,hed->bsd", o, lp["wo"])
     h = rms_norm(x, lp["ln_ffn"], cfg.norm_eps)
     return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
@@ -104,6 +131,13 @@ _LAYER_KEYS = {"wq": "layers.attn.wq", "wk": "layers.attn.wk",
                "ln_ffn": "layers.ln_ffn"}
 
 
+def _per_layer(params: Params, cfg: ModelConfig):
+    """One ``{short name: tensor}`` dict per layer.  Unbinds each stack once,
+    so the backward stacks the per-layer grads in one op."""
+    per_layer = {k: params[n].unbind(0) for k, n in _LAYER_KEYS.items()}
+    return [{k: t[i] for k, t in per_layer.items()} for i in range(cfg.num_layers)]
+
+
 def forward(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torch.Tensor]:
     """Final hidden states (B, S, d) and the (zero) MoE aux loss."""
     _check_family(cfg)
@@ -111,11 +145,8 @@ def forward(params: Params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, torc
     x = F.embedding(tokens, params["embed"])
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    # unbind once: its backward stacks the per-layer grads in one op
-    per_layer = {k: params[n].unbind(0) for k, n in _LAYER_KEYS.items()}
-    for i in range(cfg.num_layers):
-        x = _layer_apply({k: t[i] for k, t in per_layer.items()}, cfg, x,
-                         positions)
+    for lp in _per_layer(params, cfg):
+        x = _layer_apply(lp, cfg, x, positions)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -129,3 +160,32 @@ def loss_fn(params: Params, cfg: ModelConfig, batch):
     xent = chunked_softmax_xent(h, unembed_of(params), labels, mask,
                                 cfg.xent_chunk)
     return xent + cfg.router_aux_loss_coef * aux, {"xent": xent, "moe_aux": aux}
+
+
+# -- serving -------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device: torch.device) -> Dict:
+    """Zero K/V caches (L, B, cache_length, Hkv, hd) in the model's dtype and
+    position 0."""
+    _check_family(cfg)
+    lc = cache_length(seq_len, cfg.sliding_window)
+    shape = (cfg.num_layers, batch, lc, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros(shape, dtype=dtype_of(cfg), device=device), "pos": 0}
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict):
+    """tokens (B, 1) -> logits (B, 1, V) float32 and the advanced cache
+    (the same K/V tensors, written in place, and ``pos + 1``)."""
+    pos = cache["pos"]
+    x = F.embedding(tokens, params["embed"])
+    for i, lp in enumerate(_per_layer(params, cfg)):
+        x = layer_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", x.float(), unembed_of(params).float())
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+def prefill(params: Params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Full forward returning the last position's logits (B, V) float32."""
+    h, _ = forward(params, cfg, batch)
+    return torch.einsum("bd,dv->bv", h[:, -1].float(), unembed_of(params).float())

@@ -17,12 +17,15 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import compression
+from repro_torch.core import compression, unextractable
 from repro_torch.core.swarm import make_round_fn
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels.masked_agg import ops as magg
 from repro_torch.kernels.qsgd_decode import ops as qdec
+from repro_torch.kernels.swa_attention import ops as swa
+from repro_torch.launch import protocol_inference as launch_protocol
+from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import swarm as launch_swarm
 from repro_torch.models import convert
 from repro_torch.models.model import build_model
@@ -48,7 +51,7 @@ for m in mods:
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro")]
-print(len(mods))
+print(" ".join(mods))
 """
 
 
@@ -59,7 +62,12 @@ def test_port_imports_without_jax_or_the_reference():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT)],
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    mods = set(out.stdout.split())
+    assert len(mods) >= 37
+    assert {"repro_torch.kernels.swa_attention.ops", "repro_torch.core.protocol",
+            "repro_torch.core.serving", "repro_torch.core.unextractable",
+            "repro_torch.launch.serve", "repro_torch.launch.protocol_inference",
+            "repro_torch.configs.h2o_danube_1_8b"} <= mods
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -71,13 +79,18 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                                               num_heads=2, head_dim=16,
                                               d_ff=64, vocab_size=64)
     dcfg = pipeline.DataConfig(vocab_size=64, seq_len=8, global_batch=2)
+    layout = convert.layout_of(build_model(cfg).init(0, "cpu"))
     for call in (lambda: resolve_device(None),
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg).init(0),
                  lambda: pipeline.sample_tokens(dcfg, 0),
                  lambda: pipeline.data_fn_for_swarm(cfg, dcfg, 2),
                  lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
-                 lambda: launch_swarm.main(["--rounds", "1"])):
+                 lambda: unextractable.reconstruct_params({}, layout, 4,
+                                                          convert.flat_size(layout)),
+                 lambda: launch_swarm.main(["--rounds", "1"]),
+                 lambda: launch_serve.main([]),
+                 lambda: launch_protocol.main([])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -91,6 +104,34 @@ def test_launcher_runs_the_showcase_on_the_cpu_when_asked(capsys):
     assert all(np.isfinite(out["losses"]))
     assert swarm.ledger.check_conservation()
     assert "fractional ownership (ledger):" in capsys.readouterr().out
+
+
+def test_serving_launchers_run_on_the_cpu_when_asked(capsys):
+    out = launch_serve.main(["--device", "cpu", "--arch", "h2o-danube-1.8b",
+                             "--prompt-len", "30", "--max-new", "4"])
+    assert out["cfg"].use_pallas_kernels and out["cfg"].sliding_window == 32
+    assert out["tokens"].shape == (4, 4)
+    out = launch_protocol.main(["--device", "cpu", "--arch", "h2o-danube-1.8b",
+                                "--seq", "40", "--batch", "1"])
+    assert torch.equal(out["logits"], out["ref"])
+    assert torch.equal(out["logits_online"], out["ref"])
+    assert out["refused"] is not None and out["collapsed"] is not None
+    assert out["extract_err"] > 1e-2 and out["protocol_model"]
+    text = capsys.readouterr().out
+    assert "use_pallas_kernels=True" in text and "missing shard ids" in text
+    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+        launch_serve.main(["--device", "cpu", "--driver", "engine"])
+
+
+def test_swa_kernel_has_no_backward():
+    """As in the reference, the kernel path is inference only: the wrapper
+    raises on an input that requires grad (on any device), and runs under
+    no_grad or inference_mode."""
+    q, k, v = _qkv(1, 16, 4, 2, 16, torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="no backward"):
+        swa.swa_attention(q.requires_grad_(), k, v, window=4)
+    with torch.no_grad():
+        assert swa.swa_attention(q, k, v, window=4).shape == q.shape
 
 
 @pytest.mark.parametrize("device,size,levels,expect", [
@@ -178,3 +219,32 @@ def test_decode_accumulate_kernel_bit_equal(cuda, n, size):
     ref = qdec.decode_accumulate_plain(codes, norms, w, levels=64, bucket_size=512)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert compression.WIRE_CODECS == (None, "qsgd")
+
+
+def _qkv(b, s, hq, hkv, hd, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g).to(dtype).to(device)
+                 for shape in ((b, s, hq, hd), (b, s, hkv, hd), (b, s, hkv, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,hd,window", [
+    (1, 256, 4, 2, 32, 64),
+    (2, 200, 4, 1, 64, 32),          # S not a multiple of the tile
+    (1, 300, 8, 2, 80, 17),          # window below a tile
+    (1, 333, 4, 4, 128, 100),        # window not a multiple of a tile
+    (2, 130, 8, 8, 16, 4096),        # window >= S
+    (1, 5, 2, 1, 8, 3),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_matches_plain_and_repeats_its_bits(cuda, b, s, hq, hkv, hd, window, dtype):
+    """Within the reference test's tolerances (2e-4 float32, 2e-2 bfloat16)
+    of the plain version; two launches give the same bits."""
+    q, k, v = _qkv(b, s, hq, hkv, hd, dtype, cuda)
+    out = swa.swa_attention_kernel(q, k, v, window=window)
+    ref = swa.swa_attention_plain(q, k, v, window=window)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    again = swa.swa_attention_kernel(q, k, v, window=window)
+    assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))

@@ -245,13 +245,13 @@ def test_model_rounds_match_reference():
 
 
 def test_unported_axes_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tswarm.SwarmConfig(topology="ring")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tswarm.SwarmConfig(staleness_bound=2)
     with pytest.raises(NotImplementedError, match="item 8"):
+        tswarm.SwarmConfig(topology="ring")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tswarm.SwarmConfig(staleness_bound=2)
+    with pytest.raises(NotImplementedError, match="item 10"):
         tswarm.SwarmConfig(economy=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tswarm.make_swarm(None, {"w": torch.zeros(2)}, topt.SGD(), [], tswarm.SwarmConfig(),
                           None, engine="sequential")
     with pytest.raises(ValueError, match="fused=True unsupported"):
