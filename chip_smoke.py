@@ -21,6 +21,11 @@ Phases, each timed with CUDA events:
    and at ragged ones (S not a multiple of the tile, a window below a tile
    or not a multiple of one or at least S, hd 64 / 80 / 128, float32 and
    bfloat16): within 2e-2 in bf16 and 2e-4 in f32, two launches bit-equal;
+3b. the WKV kernel against its plain version at rwkv6-1.6b's served shape
+   (B 1, S 32,768, H 32, K 64, bf16) and at ragged ones (S = 1, S not a
+   multiple of the chunk, K 32 / 64 / 128, float32 and bfloat16, a non-zero
+   initial state, strong decay): y within 1e-4 relative L2 in float32 and
+   1e-2 in bfloat16, s_final within 1e-4, two launches bit-equal;
 4. the swarm's main path: ``python -m repro_torch.launch.swarm --full
    --rounds 3`` (the showcase: protocol-125m at full width, 10 nodes, QSGD
    wire, CenteredClip, audits), with finite loss, only Byzantine nodes
@@ -53,10 +58,26 @@ Phases, each timed with CUDA events:
    kernel route's logit gap held to at most twice the gap between two
    routes without the kernel (``_swa`` and ``swa_attention_plain``), which
    shows how far the random model's chaos parts any two float orders;
+7c. the serving path on rwkv6 (``protocol_serve_rwkv6``): ``python -m
+   repro_torch.launch.protocol_inference --arch rwkv6-1.6b --full --seq
+   32768 --batch 1`` (1,590,235,136 params built), with phase 7's checks;
+   then ``decode`` of 4 prompts of 1,040 tokens (not a multiple of a
+   chunk), 32 new tokens;
+7d. decode against the kernel prefill on a float32 copy of the full-width
+   params (where prefill's bf16 cast of w does nothing): each layer's
+   recurrent state after stepping the 1,040-token prompts within 1e-4
+   relative L2 of the kernel's s_final, the last logits within 1e-3; the
+   bf16 gap of the served params (the reference's quirk) is printed, not
+   held;
+8b. the WKV kernel route against the ``wkv_chunked`` route on the served
+   32,768-token prefill: teacher-forced, each layer's update and the
+   logits within 1e-2 relative L2; free-running, the kernel route's logit
+   gap at most twice the gap between two routes without the kernel
+   (``wkv_plain`` and ``wkv_chunked``);
 9. time each kernel, its plain version and the matching PyTorch library
    call where one exists, at the main paths' shapes.
 
-Each driven path (phases 4, 5 and 7) has launch counters of its own:
+Each driven path (phases 4, 5, 7 and 7c) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
@@ -91,6 +112,11 @@ SERVE_PREFILLS = 4              # served full swarm, one node offline, the true
 # before the prompt ends; phase 7b steps WRAP_STEPS positions around it
 DECODE_PROMPTS, DECODE_LEN, DECODE_NEW = 4, SWA_SHAPE["window"] + 64, 32
 WRAP_STEPS = 128
+# the rwkv6 serving path: rwkv6-1.6b's prefill at the same length
+WKV_SHAPE = dict(b=1, s=32_768, h=32, k=64)
+RWKV_LAYERS = 24
+RWKV_PARAMS = 1_590_235_136     # the params built (param_count() says 1,929,480,192)
+RWKV_DECODE_LEN = 1_040         # not a multiple of the kernel's 16-token chunk
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own)
 KERNELS = {
@@ -105,6 +131,8 @@ KERNELS = {
                                "compressed_wire"),
     "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
                       "src/repro/kernels/swa_attention/kernel.py:65", "protocol_serve"),
+    "wkv_scan": ("src/repro_torch/csrc/rwkv6_wkv.cu",
+                 "src/repro/kernels/rwkv6_wkv/kernel.py:73", "protocol_serve_rwkv6"),
 }
 
 # launches each driven path must make (kernels not named: none).  A
@@ -116,6 +144,7 @@ EXPECTED_LAUNCHES = {
     "compressed_wire": {"qsgd_decode_accumulate": 1},
     "sign_flip_minority": {"masked_median": 1, "masked_cc_iter": 3},
     "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
+    "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
 }
 
 
@@ -207,12 +236,14 @@ class Smoke:
         just after it to ``EXPECTED_LAUNCHES[path]``."""
         from repro_torch.kernels.masked_agg import ops as magg
         from repro_torch.kernels.qsgd_decode import ops as qdec
+        from repro_torch.kernels.rwkv6_wkv import ops as wkv
         from repro_torch.kernels.swa_attention import ops as swa
-        for d in (magg.LAUNCHES, qdec.LAUNCHES, swa.LAUNCHES):
+        counters = (magg.LAUNCHES, qdec.LAUNCHES, swa.LAUNCHES, wkv.LAUNCHES)
+        for d in counters:
             for k in d:
                 d[k] = 0
         out = fn()
-        got = {**magg.LAUNCHES, **qdec.LAUNCHES, **swa.LAUNCHES}
+        got = {k: n for d in counters for k, n in d.items()}
         want = {k: EXPECTED_LAUNCHES[path].get(k, 0) for k in got}
         print(f"  launches on {path}: {json.dumps(got)}", flush=True)
         check(got == want, f"{path}: launches {got}, expected {want}")
@@ -225,6 +256,7 @@ class Smoke:
         self.phase("1 build kernels", self.build_kernels)
         self.phase("2 swarm kernels vs plain", self.kernels_vs_plain)
         self.phase("3 swa_attention vs plain", self.swa_vs_plain)
+        self.phase("3b wkv_scan vs plain", self.wkv_vs_plain)
         torch.cuda.reset_peak_memory_stats()
         main_out = self.phase("4 main path (showcase, full width)", self.main_path)
         self.phase("5 other configs (full width)", lambda: self.other_configs(main_out))
@@ -241,6 +273,15 @@ class Smoke:
         self.phase("8 kernel route vs _swa route (full width)",
                    lambda: self.swa_route_gap(serve_out))
         del serve_out
+        self.free()
+        torch.cuda.reset_peak_memory_stats()
+        rwkv_out = self.phase("7c serving path (protocol_serve_rwkv6, rwkv6-1.6b full width)",
+                              self.protocol_serve_rwkv6)
+        self.phase("7d decode vs kernel prefill, float32 copy (rwkv6 full width)",
+                   lambda: self.rwkv_decode_vs_prefill(rwkv_out))
+        self.phase("8b kernel route vs wkv_chunked route (rwkv6 full width)",
+                   lambda: self.wkv_route_gap(rwkv_out))
+        del rwkv_out
         self.free()
         rows = self.phase("9 timings", self.timings)
         print(json.dumps({"kernels": rows}), flush=True)
@@ -389,6 +430,61 @@ class Smoke:
                 self.record_err("swa_attention", o, r)
             print(f"  swa_attention ok: {tag}, max abs err {err:.3e}", flush=True)
             del q, k, v, out, again, ref, o, r
+        self.free()
+
+    def wkv_inputs(self, b, s, h, k, dtype, decay="model", seed=0):
+        """r, k, v, w (B, S, H, K) in ``dtype`` and u (H, K) float32.  w as
+        the model's init draws it (exp(-exp(-6 + lora)), near 0.9975), or
+        ``strong``: uniform in [0.05, 0.95], where the TPU kernel's form
+        overflows."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        shape = (b, s, h, k)
+        r, kk = (torch.randn(shape, generator=g, device=self.dev) * 0.5 for _ in range(2))
+        v = torch.randn(shape, generator=g, device=self.dev)
+        if decay == "strong":
+            w = 0.05 + 0.9 * torch.rand(shape, generator=g, device=self.dev)
+        else:
+            w = torch.exp(-torch.exp(-6.0 + torch.randn(shape, generator=g, device=self.dev)))
+        u = torch.randn((h, k), generator=g, device=self.dev) * 0.1
+        return [t.to(dtype) for t in (r, kk, v, w)] + [u]
+
+    def wkv_vs_plain(self):
+        torch = self.torch
+        from repro_torch.kernels.rwkv6_wkv import ops
+        main = tuple(WKV_SHAPE.values())
+        cases = [(main, torch.bfloat16, "model", False)] + [
+            (shape, dt, decay, s0) for shape, decay, s0 in (
+                ((1, 1, 4, 64), "model", True),          # one token
+                ((2, 1000, 4, 32), "model", False),      # S not a multiple of the chunk
+                ((1, 4099, 8, 128), "model", True),
+                ((1, 777, 4, 64), "strong", True),       # the TPU form overflows here
+                ((2, 300, 2, 16), "strong", False))
+            for dt in (torch.float32, torch.bfloat16)]
+        for (b, s, h, k), dt, decay, with_s0 in cases:
+            args = self.wkv_inputs(b, s, h, k, dt, decay)
+            s0 = None
+            if with_s0:
+                g = torch.Generator(device=self.dev).manual_seed(1)
+                s0 = torch.randn((b, h, k, k), generator=g, device=self.dev)
+            y, sf = ops.wkv_kernel(*args, s0)
+            y2, sf2 = ops.wkv_kernel(*args, s0)
+            ry, rs = ops.wkv_plain(*args, s0)
+            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            tag = f"B={b} S={s} H={h} K={k} {dt} decay={decay} s0={with_s0}"
+            check(torch.equal(y.view(bits), y2.view(bits)) and torch.equal(sf, sf2),
+                  f"wkv_scan: two launches differ ({tag})")
+            tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+            ey, es = self.rel(y, ry), self.rel(sf, rs)
+            check(bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(sf).all())
+                  and ey <= tol and es <= 1e-4,
+                  f"wkv_scan beyond its plain version ({tag}): y {ey:.3e} (bound {tol}), "
+                  f"s_final {es:.3e} (bound 1e-4)")
+            if ((b, s, h, k), dt) == (main, torch.bfloat16):
+                self.record_err("wkv_scan", y.float(), ry.float())
+            print(f"  wkv_scan ok: {tag}, y rel L2 {ey:.3e}, s_final rel L2 {es:.3e}",
+                  flush=True)
+            del args, y, y2, ry, sf, sf2, rs
         self.free()
 
     def main_path(self):
@@ -716,6 +812,173 @@ class Smoke:
               f"free-running, the kernel route parts from _swa ({free_kernel:.3e}) more "
               f"than twice as far as two routes without the kernel ({free_witness:.3e})")
 
+    def protocol_serve_rwkv6(self):
+        """The serving path on full-width rwkv6-1.6b, on counters of its
+        own; phase 7's checks, then a decode of prompts of 1,040 tokens."""
+        torch = self.torch
+        from repro_torch.core.protocol import CredentialError, ExtractionError
+        from repro_torch.launch import protocol_inference as launch
+
+        def drive():
+            out = launch.main(["--arch", "rwkv6-1.6b", "--full", "--seq",
+                               str(WKV_SHAPE["s"]), "--batch", str(WKV_SHAPE["b"])])
+            g = torch.Generator(device=self.dev).manual_seed(6)
+            prompts = torch.randint(0, out["model"].cfg.vocab_size,
+                                    (DECODE_PROMPTS, RWKV_DECODE_LEN), generator=g,
+                                    device=self.dev)
+            gen, stats = out["server"].decode("customer", prompts, DECODE_NEW)
+            return out, prompts, gen, stats
+
+        out, prompts, gen, stats = self.counted("protocol_serve_rwkv6", drive)
+        out["prompts"] = prompts
+        cfg = out["model"].cfg
+        check(cfg.use_pallas_kernels and cfg.family == "ssm" and cfg.d_model == 2048
+              and cfg.num_layers == RWKV_LAYERS and out["n_params"] == RWKV_PARAMS,
+              "not full-width rwkv6-1.6b")
+        check(isinstance(out["refused"], CredentialError), "served without credentials")
+        logits, ref = out["logits"], out["ref"]
+        check(tuple(logits.shape) == (WKV_SHAPE["b"], cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), "served logits not finite or misshapen")
+        check(torch.equal(logits, ref), "served logits not bit-equal to Model.prefill(params)")
+        check(torch.equal(out["logits_online"], ref),
+              "logits with node3 offline not bit-equal to Model.prefill(params)")
+        check(isinstance(out["collapsed"], ExtractionError)
+              and "missing shard ids" in str(out["collapsed"]),
+              "a swarm of 2 nodes served, or did not name the missing shards")
+        check(out["extract_rel"] > 0.1, f"a 3-node coalition's logits are close to the "
+                                        f"true ones (relative L2 {out['extract_rel']:.3e})")
+        served = out["server"]._params_cache[frozenset(launch.NODES)]
+        check(all(torch.equal(served[k], t) for k, t in out["params"].items()),
+              "the params the server decoded with differ from the true ones")
+        check(tuple(gen.shape) == (DECODE_PROMPTS, DECODE_NEW)
+              and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
+              "decode tokens misshapen or outside the vocabulary")
+        self.profile_decode_step(out)
+        print(f"  protocol_serve_rwkv6: prefill of {WKV_SHAPE['b']} x {WKV_SHAPE['s']} tokens "
+              f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {RWKV_DECODE_LEN} -> "
+              f"{DECODE_NEW} new: {stats.tok_per_s:.1f} tok/s (prefill by stepping "
+              f"{stats.prefill_s:.3f} s, decode {stats.decode_s:.3f} s); coalition "
+              f"logits relative L2 {out['extract_rel']:.3f}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del out["server"]
+        return out
+
+    def rwkv_decode_vs_prefill(self, out):
+        """Decode against the kernel prefill on a float32 copy of the
+        params: the prompts of phase 7c through the kernel prefill layer by
+        layer (keeping each layer's s_final) and through ``decode_step``
+        token by token, both free-running.  The reference's prefill rounds
+        w to the model's dtype and decode does not; on the float32 copy the
+        rounding does nothing, so the two must agree.  The served bf16
+        params' gap is printed as the reference's quirk, not held."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from dataclasses import replace
+        from repro_torch.models import rwkv6 as R
+        from repro_torch.models.common import rms_norm
+        from repro_torch.models.model import build_model
+        cfg = out["model"].cfg
+        prompts = out["prompts"]
+        cfg32 = replace(cfg, dtype="float32")
+        params = {k: t.float() for k, t in out["params"].items()}
+        model = build_model(cfg32)
+        with torch.inference_mode():
+            x = rms_norm(F.embedding(prompts, params["embed"]), params["ln_in"], cfg.norm_eps)
+            states = []
+            for lp in R._per_layer(params, cfg32):
+                o, sf = R.time_mix_state(lp, cfg32, rms_norm(x, lp["ln_tm"], cfg.norm_eps))
+                x = x + o
+                x = x + R.channel_mix(lp, cfg32, rms_norm(x, lp["ln_cm"], cfg.norm_eps))
+                states.append(sf)
+            pre = self.last_logits(params, cfg32, x)
+            logits, cache = model.decode_scan(params, prompts,
+                                              model.init_cache(prompts.shape[0], 0, self.dev))
+            gaps = [self.rel(cache["s"][i], states[i]) for i in range(cfg.num_layers)]
+            gap = self.rel(logits[:, -1], pre)
+            del params, cache, states, logits
+            self.free()
+            served = out["model"]
+            bf_logits, _ = served.decode_scan(out["params"], prompts,
+                                              served.init_cache(prompts.shape[0], 0, self.dev))
+            bf_gap = self.rel(bf_logits[:, -1], served.prefill(out["params"],
+                                                              {"tokens": prompts}))
+        print(f"  float32 copy, {prompts.shape[0]} x {prompts.shape[1]} tokens: decode's "
+              f"recurrent states vs the kernel's s_final within {max(gaps):.3e} relative L2 "
+              f"(worst of {len(gaps)} layers; per layer {[float(f'{g:.2e}') for g in gaps]}), "
+              f"last logits {gap:.3e}", flush=True)
+        print(f"  served bf16 params: decode vs prefill last logits {bf_gap:.3e} relative L2 "
+              f"(the reference's quirk: prefill rounds w to bf16, decode keeps float32; not "
+              f"held)", flush=True)
+        check(max(gaps) <= 1e-4 and gap <= 1e-3,
+              f"decode and the kernel prefill differ on the float32 copy (states "
+              f"{max(gaps):.3e}, bound 1e-4; logits {gap:.3e}, bound 1e-3)")
+
+    def wkv_route_gap(self, out):
+        """The served rwkv6 prefill's kernel route against the
+        ``wkv_chunked`` route (``use_pallas_kernels`` off).  Teacher-forced:
+        at each of the 24 layers both routes take the kernel route's input,
+        and the layer's update and the last layer's logits must agree within
+        1e-2 relative L2.  Free-running, the kernel route's logit gap to
+        ``wkv_chunked`` is held to at most twice the gap between two routes
+        without the kernel (``wkv_plain`` in its place)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from dataclasses import replace
+        from repro_torch.core.serving import device_clock
+        from repro_torch.kernels.rwkv6_wkv import ops
+        from repro_torch.models import rwkv6 as R
+        from repro_torch.models.common import rms_norm
+        from repro_torch.models.model import build_model
+
+        cfg_k = out["model"].cfg
+        cfg_c = replace(cfg_k, use_pallas_kernels=False)
+        params, tokens = out["params"], out["batch"]["tokens"]
+        kernel_entry = R.wkv
+
+        def plain_layer(lp, h):                   # wkv_plain for the kernel
+            R.wkv = ops.wkv_plain
+            try:
+                return R.layer_apply(lp, cfg_k, h)
+            finally:
+                R.wkv = kernel_entry
+
+        with torch.inference_mode():
+            t0 = device_clock(self.dev)
+            free = build_model(cfg_c).prefill(params, out["batch"])
+            dt = device_clock(self.dev) - t0
+            x = y = z = rms_norm(F.embedding(tokens, params["embed"]), params["ln_in"],
+                                 cfg_k.norm_eps)
+            gaps, free_gaps, witness_gaps = [], [], []
+            for lp in R._per_layer(params, cfg_k):
+                a = R.layer_apply(lp, cfg_k, x)
+                b = R.layer_apply(lp, cfg_c, x)
+                y = R.layer_apply(lp, cfg_c, y)         # the wkv_chunked route, free
+                z = plain_layer(lp, z)                  # the plain route, free
+                gaps.append(self.rel(a.float() - x.float(), b.float() - x.float()))
+                free_gaps.append(self.rel(a, y))
+                witness_gaps.append(self.rel(z, y))
+                x = a
+            la, lb = (self.last_logits(params, cfg_k, h) for h in (a, b))
+            free_kernel = self.rel(out["ref"], free)
+            free_witness = self.rel(self.last_logits(params, cfg_k, z), free)
+        gap = self.rel(la, lb)
+        print(f"  kernel route vs wkv_chunked route, teacher-forced: layer updates within "
+              f"{max(gaps):.3e} relative L2 (worst of {len(gaps)} layers), logits "
+              f"{gap:.3e}; the kernel route's logits equal the served ones: "
+              f"{bool(torch.equal(la, out['ref']))}", flush=True)
+        print(f"  free-running: kernel vs wkv_chunked logits {free_kernel:.3e}, hidden states "
+              f"after each layer {[float(f'{g:.2e}') for g in free_gaps]}", flush=True)
+        print(f"  free-running, no kernel on either side: wkv_plain vs wkv_chunked logits "
+              f"{free_witness:.3e}, hidden states after each layer "
+              f"{[float(f'{g:.2e}') for g in witness_gaps]}; wkv_chunked prefill {dt:.3f} s "
+              f"vs kernel route {out['prefill_s']:.3f} s", flush=True)
+        check(max(gaps) <= 1e-2 and gap <= 1e-2,
+              f"kernel and wkv_chunked routes differ beyond 1e-2 (layers {max(gaps):.3e}, "
+              f"logits {gap:.3e})")
+        check(free_kernel <= max(1e-2, 2 * free_witness),
+              f"free-running, the kernel route parts from wkv_chunked ({free_kernel:.3e}) "
+              f"more than twice as far as two routes without the kernel ({free_witness:.3e})")
+
     def time_ms(self, fn, reps):
         torch = self.torch
         fn()
@@ -777,7 +1040,22 @@ class Smoke:
         del codes, norms, w
         self.free()
         rows.append(self.swa_row())
+        rows.append(self.wkv_row())
         return rows
+
+    def wkv_row(self):
+        """wkv_scan at the rwkv6 serving prefill's shape.  No single PyTorch
+        call computes the WKV, so the library column is empty.  Bytes: r, k,
+        v, w read and y written once (bf16), u read and s_final written
+        (float32); operations: 4 K^2 flops a token and head (y = r^T S and
+        the rank-1 state update, 2 K^2 each)."""
+        torch = self.torch
+        from repro_torch.kernels.rwkv6_wkv import ops
+        b, s, h, k = WKV_SHAPE.values()
+        args = self.wkv_inputs(b, s, h, k, torch.bfloat16, seed=3)
+        nbytes = 5 * b * s * h * k * 2 + h * k * 4 + b * h * k * k * 4
+        return self.row("wkv_scan", lambda: ops.wkv_kernel(*args),
+                        lambda: ops.wkv_plain(*args), None, nbytes, 4 * k * k * b * s * h)
 
     def swa_row(self):
         """swa_attention at the serving prefill's shape.  The library call is

@@ -8,8 +8,11 @@ Hopper (``csrc/``), built with ``nvcc`` at first use and bound with ctypes
 ``device="cpu"``; they raise when CUDA is missing and the CPU was not asked
 for (``device.resolve_device``).
 
-Ported so far (slice 1): the centralized synchronous swarm round on the
-dense protocol-125m LM — configs, data, the dense transformer, optimizers,
+Ported so far: the centralized synchronous swarm round on the dense
+protocol-125m LM — configs, data, the dense transformer, optimizers,
 masked aggregation, the QSGD wire, audits, the ledger and the ``Swarm``
-engine — with the four masked-aggregation / QSGD-decode kernels.
+engine — with the four masked-aggregation / QSGD-decode kernels (slice
+1); Protocol Model serving on h2o-danube-1.8b with the sliding-window
+attention kernel (slice 2); rwkv6-1.6b served through the same server,
+with the WKV recurrence kernel (slice 3).
 """

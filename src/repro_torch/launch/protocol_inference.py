@@ -6,6 +6,8 @@ inference where the weights never leave the protocol.  The port's twin of
     python -m repro_torch.launch.protocol_inference --device cpu
     python -m repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full \\
         --seq 32768 --batch 1                                    # 1,831,201,280 params
+    python -m repro_torch.launch.protocol_inference --arch rwkv6-1.6b --full \\
+        --seq 32768 --batch 1                                    # 1,590,235,136 params
 
 Shows (1) credential gating and transferable credentials, (2) that serving
 needs the live swarm (it survives one departure at redundancy 2, and a
@@ -14,7 +16,10 @@ coalition reassembles only garbage, and (4) the extraction-vs-retrain
 economics that define a Protocol Model.  8 nodes, 16 custody shards,
 redundancy 2, at most 35% of the model on one node.  The config is built
 with ``use_pallas_kernels`` set, so on the card each prefill of a
-sliding-window model runs the attention kernel.
+sliding-window model runs the attention kernel, and each prefill of rwkv6
+the WKV kernel.  At the reduced width rwkv6 has 8 WKV heads of 32
+(``ModelConfig.reduced``).  The parameter count, printed and used in the
+economics, is that of the params built.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ from repro_torch.core.serving import device_clock
 from repro_torch.core.unextractable import (extraction_cost_flops, is_protocol_model,
                                             retrain_cost_flops)
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import serving_config
+from repro_torch.launch.serve import count_params, serving_config
 from repro_torch.models.model import build_model
 
 #: the example's reduced width
@@ -53,7 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = serving_config(args.arch, args.full, **REDUCED)
     model = build_model(cfg)
     params = model.init(args.seed, dev)
-    print(f"model: {cfg.name} N={cfg.param_count():,} "
+    n_params = count_params(params)
+    print(f"model: {cfg.name} N={n_params:,} "
           f"({'full' if args.full else 'reduced'}) on {dev}, "
           f"use_pallas_kernels={cfg.use_pallas_kernels}")
 
@@ -108,7 +114,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"prefill of {args.batch} x {args.seq} tokens: {prefill_s:.3f} s")
 
     # 4. the defining inequality: acquire-missing-shards vs retrain
-    n_params = cfg.param_count()
     tokens = 20 * n_params                                 # chinchilla-ish
     cost_per_shard = retrain_cost_flops(n_params, tokens) / 4
     extract = extraction_cost_flops(srv.custody, coalition, cost_per_shard)
@@ -122,7 +127,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "logits": logits, "logits_online": logits_online, "ref": ref,
             "refused": refused, "collapsed": collapsed, "extract_err": extract_err,
             "extract_rel": extract_rel,
-            "protocol_model": protocol, "prefill_s": prefill_s}
+            "protocol_model": protocol, "prefill_s": prefill_s, "n_params": n_params}
 
 
 if __name__ == "__main__":

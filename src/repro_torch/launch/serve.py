@@ -3,6 +3,7 @@
 
     python -m repro_torch.launch.serve                    # reduced protocol-125m, on the card
     python -m repro_torch.launch.serve --arch h2o-danube-1.8b --full
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
     python -m repro_torch.launch.serve --device cpu --driver loop
 
 - ``--driver scan`` (default) and ``--driver loop``: ``core.serving.
@@ -13,6 +14,7 @@
 
 The config is built with ``use_pallas_kernels`` set, as the serving path
 takes the kernels; decoding steps through ``decode_step`` and runs none.
+The parameter count printed is that of the params built.
 """
 from __future__ import annotations
 
@@ -36,6 +38,12 @@ def serving_config(arch: str, full: bool, **reduced) -> ModelConfig:
     return dataclasses.replace(cfg, use_pallas_kernels=True)
 
 
+def count_params(params) -> int:
+    """The number of parameters built (``ModelConfig.param_count`` is an
+    analytic formula, which for rwkv6 counts ``cm_r`` as d x d_ff)."""
+    return sum(t.numel() for t in params.values())
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="protocol-125m")
@@ -53,11 +61,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     dev = resolve_device(args.device)
     cfg = serving_config(args.arch, args.full)
-    print(f"model: {cfg.name} N={cfg.param_count():,} "
-          f"({'full' if args.full else 'reduced'}) on {dev}, "
-          f"use_pallas_kernels={cfg.use_pallas_kernels}")
     model = build_model(cfg)
     params = model.init(args.seed, dev)
+    print(f"model: {cfg.name} N={count_params(params):,} "
+          f"({'full' if args.full else 'reduced'}) on {dev}, "
+          f"use_pallas_kernels={cfg.use_pallas_kernels}")
     g = torch.Generator().manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g).to(dev)

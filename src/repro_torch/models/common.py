@@ -13,6 +13,14 @@ import torch
 import torch.nn.functional as F
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
 # -- initialisation ----------------------------------------------------------
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype: torch.dtype,
                device: torch.device, *, fan_shape: Optional[Sequence[int]] = None,

@@ -2,10 +2,11 @@
 
 The flat vector lays the parameters out in **exactly** the order of
 ``jax.tree.leaves`` on the reference's nested param dict: keys sorted at
-every level, i.e. ``embed``, ``layers.attn.{wk,wo,wq,wv}``,
-``layers.ffn.{w_down,w_gate,w_up}``, ``layers.ln_attn``, ``layers.ln_ffn``,
-``ln_f``, ``unembed``.  The order is part of the contract: QSGD buckets are
-cut from the flat vector, so any other order gives other bucket norms.
+every level, e.g. for the dense family ``embed``,
+``layers.attn.{wk,wo,wq,wv}``, ``layers.ffn.{w_down,w_gate,w_up}``,
+``layers.ln_attn``, ``layers.ln_ffn``, ``ln_f``, ``unembed``.  The order is
+part of the contract: QSGD buckets are cut from the flat vector, so any
+other order gives other bucket norms.
 Sorting the dotted names gives that order, because ``.`` sorts below every
 character a key uses.
 """
@@ -18,7 +19,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import param_shapes
 
 Params = Dict[str, torch.Tensor]
 Layout = Sequence[Tuple[str, Tuple[int, ...], torch.dtype]]
@@ -26,7 +26,8 @@ Layout = Sequence[Tuple[str, Tuple[int, ...], torch.dtype]]
 
 def flat_order(cfg: ModelConfig):
     """Parameter names in the reference's ``jax.tree.leaves`` order."""
-    return sorted(param_shapes(cfg))
+    from repro_torch.models.model import family_module   # model imports this module
+    return sorted(family_module(cfg).param_shapes(cfg))
 
 
 def layout_of(params: Mapping[str, torch.Tensor]) -> Layout:

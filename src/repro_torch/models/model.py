@@ -1,5 +1,8 @@
-"""``build_model(cfg)``: the dense model as an ``nn.Module`` (twin of
-``repro/models/model.py``).
+"""``build_model(cfg)``: a model of a ported family as an ``nn.Module``
+(twin of ``repro/models/model.py``).  The family picks the module, as the
+reference's ``_family_module`` does: dense models run in
+``models/transformer.py``, rwkv6 (the SSM family) in ``models/rwkv6.py``;
+the other families raise ``NotImplementedError`` naming their ROADMAP item.
 
 The swarm works on param dicts functionally, as the reference does, so the
 module's own surface is thin: ``init`` draws a fresh param dict,
@@ -17,21 +20,33 @@ from typing import Dict
 import torch
 from torch import nn
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.convert import flat_order
 
 Params = Dict[str, torch.Tensor]
+
+
+def family_module(cfg: ModelConfig):
+    """The module that runs ``cfg``'s family."""
+    if cfg.family == DENSE:
+        return transformer
+    if cfg.family == SSM:
+        return rwkv6
+    item = "item 2" if cfg.family == HYBRID else "item 11"
+    raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+                              f"(ROADMAP queue 1, {item})")
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        self.family = family_module(cfg)
 
     def init(self, seed: int = 0, device: DeviceLike = None) -> Params:
-        return transformer.init_params(seed, self.cfg, resolve_device(device))
+        return self.family.init_params(seed, self.cfg, resolve_device(device))
 
     def load_params(self, params: Params) -> None:
         for name in flat_order(self.cfg):
@@ -47,20 +62,20 @@ class Model(nn.Module):
         return {name: self.get_parameter(name) for name in flat_order(self.cfg)}
 
     def loss(self, params: Params, batch):
-        return transformer.loss_fn(params, self.cfg, batch)
+        return self.family.loss_fn(params, self.cfg, batch)
 
     def forward(self, batch):
         return self.loss(self.param_dict(), batch)
 
     # -- serving -----------------------------------------------------------------
     def prefill(self, params: Params, batch) -> torch.Tensor:
-        return transformer.prefill(params, self.cfg, batch)
+        return self.family.prefill(params, self.cfg, batch)
 
     def init_cache(self, batch: int, seq_len: int, device: DeviceLike = None):
-        return transformer.init_cache(self.cfg, batch, seq_len, resolve_device(device))
+        return self.family.init_cache(self.cfg, batch, seq_len, resolve_device(device))
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache):
-        return transformer.decode_step(params, self.cfg, tokens, cache)
+        return self.family.decode_step(params, self.cfg, tokens, cache)
 
     def decode_scan(self, params: Params, tokens: torch.Tensor, cache):
         """Feed ``tokens`` (B, T) one position at a time through
@@ -74,11 +89,8 @@ class Model(nn.Module):
 
     def concrete_batch(self, seed: int, batch: int, seq: int,
                        device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-        """A small concrete batch of random tokens and labels (dense family)."""
-        if self.cfg.family != DENSE:
-            raise NotImplementedError(
-                f"concrete_batch for the {self.cfg.family!r} family waits for its "
-                "model slice (ROADMAP queue 1, items 1, 2 and 11)")
+        """A small concrete batch of random tokens and labels (the dense and
+        SSM families: the reference adds media and frames for the others)."""
         g = torch.Generator().manual_seed(seed)
         out = {"tokens": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g),
                "labels": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g)}

@@ -4,9 +4,10 @@ Parameters are a flat ``{name: tensor}`` dict whose names mirror the
 reference's nested tree (``layers.attn.wq`` is ``params["layers"]["attn"]
 ["wq"]`` there).  Layer weights are **stacked over layers** as in JAX —
 ``layers.attn.wq`` is one (L, d, H, hd) tensor — and the layers are applied
-in a Python loop.  Only the dense family is ported, with full or
-sliding-window attention; rwkv6 and zamba2 wait for their slices (ROADMAP
-queue 1, items 1 and 2), MoE, VLM and the others for item 11.
+in a Python loop.  This module runs the dense family, with full or
+sliding-window attention; rwkv6 runs in ``models/rwkv6.py``, zamba2 waits
+for its slice (ROADMAP queue 1, item 2), MoE, VLM and the others for item
+11.
 
 Serving: :func:`prefill` is the full forward returning the last position's
 logits; :func:`decode_step` feeds one token per sequence through a KV cache
@@ -24,24 +25,18 @@ from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.models.attention import (attention, cache_insert, cache_length,
                                           decode_attention)
 from repro_torch.models.common import (apply_rope, chunked_softmax_xent,
-                                       dense_init, embed_init, rms_norm, swiglu)
+                                       dense_init, dtype_of, embed_init, rms_norm,
+                                       swiglu)
 from repro_torch.random import _INIT, generator
 
 Params = Dict[str, torch.Tensor]
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
-
-
-def dtype_of(cfg: ModelConfig) -> torch.dtype:
-    return _DTYPES[cfg.dtype]
-
-
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != DENSE:
         raise NotImplementedError(
-            f"{cfg.name}: only dense models are ported so far (rwkv6: ROADMAP "
-            "queue 1, item 1; zamba2: item 2; the other families: item 11)")
+            f"{cfg.name}: models/transformer.py runs the dense family (rwkv6 runs "
+            "in models/rwkv6.py; zamba2: ROADMAP queue 1, item 2; the other "
+            "families: item 11)")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:

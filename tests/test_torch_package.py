@@ -23,6 +23,7 @@ from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
 from repro_torch.kernels.masked_agg import ops as magg
 from repro_torch.kernels.qsgd_decode import ops as qdec
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.swa_attention import ops as swa
 from repro_torch.launch import protocol_inference as launch_protocol
 from repro_torch.launch import serve as launch_serve
@@ -67,7 +68,8 @@ def test_port_imports_without_jax_or_the_reference():
     assert {"repro_torch.kernels.swa_attention.ops", "repro_torch.core.protocol",
             "repro_torch.core.serving", "repro_torch.core.unextractable",
             "repro_torch.launch.serve", "repro_torch.launch.protocol_inference",
-            "repro_torch.configs.h2o_danube_1_8b"} <= mods
+            "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.rwkv6_1_6b",
+            "repro_torch.models.rwkv6", "repro_torch.kernels.rwkv6_wkv.ops"} <= mods
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -80,6 +82,7 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                                               d_ff=64, vocab_size=64)
     dcfg = pipeline.DataConfig(vocab_size=64, seq_len=8, global_batch=2)
     layout = convert.layout_of(build_model(cfg).init(0, "cpu"))
+    rwkv = build_model(get_config("rwkv6-1.6b").reduced())
     for call in (lambda: resolve_device(None),
                  lambda: resolve_device("cuda"),
                  lambda: build_model(cfg).init(0),
@@ -90,7 +93,12 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                                                           convert.flat_size(layout)),
                  lambda: launch_swarm.main(["--rounds", "1"]),
                  lambda: launch_serve.main([]),
-                 lambda: launch_protocol.main([])):
+                 lambda: launch_protocol.main([]),
+                 lambda: rwkv.init(0),
+                 lambda: rwkv.init_cache(1, 8),
+                 lambda: rwkv.concrete_batch(0, 1, 8),
+                 lambda: launch_serve.main(["--arch", "rwkv6-1.6b"]),
+                 lambda: launch_protocol.main(["--arch", "rwkv6-1.6b"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -123,6 +131,29 @@ def test_serving_launchers_run_on_the_cpu_when_asked(capsys):
         launch_serve.main(["--device", "cpu", "--driver", "engine"])
 
 
+def test_rwkv6_launchers_run_on_the_cpu_when_asked(capsys):
+    """rwkv6 through both serving launchers at the reduced width, each
+    printing the count of the params it built."""
+    out = launch_serve.main(["--device", "cpu", "--arch", "rwkv6-1.6b",
+                             "--prompt-len", "20", "--max-new", "4"])
+    assert out["cfg"].use_pallas_kernels and out["tokens"].shape == (4, 4)
+    out = launch_protocol.main(["--device", "cpu", "--arch", "rwkv6-1.6b",
+                                "--seq", "40", "--batch", "1"])
+    assert out["model"].cfg.rwkv_head_dim == 32 and out["model"].cfg.d_model == 256
+    assert torch.equal(out["logits"], out["ref"])
+    assert torch.equal(out["logits_online"], out["ref"])
+    assert out["refused"] is not None and out["collapsed"] is not None
+    assert out["n_params"] == sum(t.numel() for t in out["params"].values())
+    assert f"N={out['n_params']:,}" in capsys.readouterr().out
+
+
+def test_unported_families_name_their_item():
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+        build_model(get_config("rwkv6-1.6b").reduced(family="hybrid"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_model(get_config("rwkv6-1.6b").reduced(family="moe"))
+
+
 def test_swa_kernel_has_no_backward():
     """As in the reference, the kernel path is inference only: the wrapper
     raises on an input that requires grad (on any device), and runs under
@@ -132,6 +163,15 @@ def test_swa_kernel_has_no_backward():
         swa.swa_attention(q.requires_grad_(), k, v, window=4)
     with torch.no_grad():
         assert swa.swa_attention(q, k, v, window=4).shape == q.shape
+
+
+def test_wkv_kernel_has_no_backward():
+    r, k, v, w, u = _wkv(1, 16, 2, 16, torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="no backward"):
+        wkv_ops.wkv(r.requires_grad_(), k, v, w, u)
+    with torch.no_grad():
+        y, s = wkv_ops.wkv(r, k, v, w, u)
+    assert y.shape == r.shape and s.shape == (1, 2, 16, 16)
 
 
 @pytest.mark.parametrize("device,size,levels,expect", [
@@ -248,3 +288,43 @@ def test_swa_kernel_matches_plain_and_repeats_its_bits(cuda, b, s, hq, hkv, hd, 
     again = swa.swa_attention_kernel(q, k, v, window=window)
     assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
                        again.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def _wkv(b, s, h, dk, dtype, device, seed=0, strong=False):
+    """r, k, v, w (B, S, H, K) in ``dtype`` and u (H, K) float32; w in
+    [0.45, 0.95], or [0.05, 0.95] with ``strong``."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (b, s, h, dk)
+    r, k = (torch.randn(shape, generator=g) * 0.5 for _ in range(2))
+    v = torch.randn(shape, generator=g)
+    lo = 0.05 if strong else 0.45
+    w = lo + (0.95 - lo) * torch.rand(shape, generator=g)
+    u = torch.randn((h, dk), generator=g) * 0.1
+    return tuple(t.to(dtype).to(device) for t in (r, k, v, w)) + (u.to(device),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,dk,strong,with_s0", [
+    (1, 64, 2, 64, False, False),
+    (2, 37, 3, 32, False, True),     # S not a multiple of the chunk, a non-zero state
+    (1, 1, 2, 128, False, True),     # one token
+    (1, 200, 2, 16, True, False),    # strong decay
+    (1, 1000, 4, 64, True, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_kernel_matches_plain_and_repeats_its_bits(cuda, b, s, h, dk, strong, with_s0,
+                                                       dtype):
+    """y within 1e-4 relative L2 of the plain version in float32 and 1e-2
+    in bfloat16 (one rounding of y), s_final within 1e-4; two launches give
+    the same bits."""
+    r, k, v, w, u = _wkv(b, s, h, dk, dtype, cuda, strong=strong)
+    s0 = torch.randn((b, h, dk, dk), device=cuda) if with_s0 else None
+    y, sf = wkv_ops.wkv_kernel(r, k, v, w, u, s0)
+    ry, rs = wkv_ops.wkv_plain(r, k, v, w, u, s0)
+    assert y.dtype == dtype and sf.dtype == torch.float32
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert float((y.float() - ry.float()).norm() / ry.float().norm()) <= tol
+    assert float((sf - rs).norm() / rs.norm()) <= 1e-4
+    y2, sf2 = wkv_ops.wkv_kernel(r, k, v, w, u, s0)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(y.view(bits), y2.view(bits)) and torch.equal(sf, sf2)
