@@ -26,6 +26,13 @@ Phases, each timed with CUDA events:
    multiple of the chunk, K 32 / 64 / 128, float32 and bfloat16, a non-zero
    initial state, strong decay): y within 1e-4 relative L2 in float32 and
    1e-2 in bfloat16, s_final within 1e-4, two launches bit-equal;
+3c. the SSD scan kernel against its plain version at zamba2-1.2b's served
+   shape (B 1, S 32,768, H 64, P 64, N 64, bf16) and at ragged ones (S = 1,
+   1,040 and the prime 997, P 16 / 32 / 48 / 64, N 16 / 48 / 64 / 128,
+   float32 and bfloat16, a non-zero initial state, strong decay): y within
+   1e-4 relative L2 in float32, and in bfloat16 within one bf16 rounding
+   elementwise and 1e-2 relative L2; h_final within 1e-4; two launches
+   bit-equal;
 4. the swarm's main path: ``python -m repro_torch.launch.swarm --full
    --rounds 3`` (the showcase: protocol-125m at full width, 10 nodes, QSGD
    wire, CenteredClip, audits), with finite loss, only Byzantine nodes
@@ -74,10 +81,29 @@ Phases, each timed with CUDA events:
    logits within 1e-2 relative L2; free-running, the kernel route's logit
    gap at most twice the gap between two routes without the kernel
    (``wkv_plain`` and ``wkv_chunked``);
+7e. the serving path on zamba2 (``protocol_serve_zamba2``): ``python -m
+   repro_torch.launch.protocol_inference --arch zamba2-1.2b --full --seq
+   32768 --batch 1`` (1,170,157,696 params built: 38 Mamba2 layers, the
+   shared attention block, with no window, after each group of 6), with
+   phase 7's checks and a peak memory far below the 128 GiB that one
+   (32,768 x 32,768) float32 score matrix of 32 heads would take; one
+   served prefill under torch.profiler (device time by kernel); then
+   ``decode`` of 4 prompts of 1,040 tokens, 32 new tokens;
+7f. decode against the kernel prefill on a float32 copy of the full-width
+   params, teacher-forced: each layer stepped through the 1,040-token
+   prompts from the prefill's input to it; each mamba layer's SSD state
+   within 1e-4 relative L2 of the kernel's h_final, each application's K/V
+   cache equal to the prefill's k, v within 1e-5, each layer's update and
+   the last logits within 1e-3; the free-running gaps are printed;
+8c. the SSD kernel route against the ``ssd_chunked`` route on the served
+   32,768-token prefill: teacher-forced, each layer's update and the
+   logits within 1e-2 relative L2; free-running, the kernel route's logit
+   gap at most twice the gap between two routes without the kernel
+   (``ssd_plain`` and ``ssd_chunked``), or 1e-2;
 9. time each kernel, its plain version and the matching PyTorch library
    call where one exists, at the main paths' shapes.
 
-Each driven path (phases 4, 5, 7 and 7c) has launch counters of its own:
+Each driven path (phases 4, 5, 7, 7c and 7e) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
@@ -117,6 +143,11 @@ WKV_SHAPE = dict(b=1, s=32_768, h=32, k=64)
 RWKV_LAYERS = 24
 RWKV_PARAMS = 1_590_235_136     # the params built (param_count() says 1,929,480,192)
 RWKV_DECODE_LEN = 1_040         # not a multiple of the kernel's 16-token chunk
+# the zamba2 serving path: zamba2-1.2b's prefill at the same length
+SSD_SHAPE = dict(b=1, s=32_768, h=64, p=64, n=64)
+ZAMBA_LAYERS = 38               # Mamba2 layers: one ssd_scan launch each a prefill
+ZAMBA_PARAMS = 1_170_157_696    # the params built (param_count() says 1,170,155,264)
+ZAMBA_DECODE_LEN = 1_040        # not a multiple of the kernel's 32-token chunk
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own)
 KERNELS = {
@@ -133,6 +164,8 @@ KERNELS = {
                       "src/repro/kernels/swa_attention/kernel.py:65", "protocol_serve"),
     "wkv_scan": ("src/repro_torch/csrc/rwkv6_wkv.cu",
                  "src/repro/kernels/rwkv6_wkv/kernel.py:73", "protocol_serve_rwkv6"),
+    "ssd_scan": ("src/repro_torch/csrc/mamba2_ssd.cu",
+                 "src/repro/kernels/mamba2_scan/kernel.py:71", "protocol_serve_zamba2"),
 }
 
 # launches each driven path must make (kernels not named: none).  A
@@ -145,6 +178,7 @@ EXPECTED_LAUNCHES = {
     "sign_flip_minority": {"masked_median": 1, "masked_cc_iter": 3},
     "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
     "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
+    "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS},
 }
 
 
@@ -234,11 +268,12 @@ class Smoke:
     def counted(self, path, fn):
         """Run ``fn`` with every launch counter at 0 and hold the counts
         just after it to ``EXPECTED_LAUNCHES[path]``."""
+        from repro_torch.kernels.mamba2_scan import ops as ssd
         from repro_torch.kernels.masked_agg import ops as magg
         from repro_torch.kernels.qsgd_decode import ops as qdec
         from repro_torch.kernels.rwkv6_wkv import ops as wkv
         from repro_torch.kernels.swa_attention import ops as swa
-        counters = (magg.LAUNCHES, qdec.LAUNCHES, swa.LAUNCHES, wkv.LAUNCHES)
+        counters = (magg.LAUNCHES, qdec.LAUNCHES, swa.LAUNCHES, wkv.LAUNCHES, ssd.LAUNCHES)
         for d in counters:
             for k in d:
                 d[k] = 0
@@ -257,6 +292,7 @@ class Smoke:
         self.phase("2 swarm kernels vs plain", self.kernels_vs_plain)
         self.phase("3 swa_attention vs plain", self.swa_vs_plain)
         self.phase("3b wkv_scan vs plain", self.wkv_vs_plain)
+        self.phase("3c ssd_scan vs plain", self.ssd_vs_plain)
         torch.cuda.reset_peak_memory_stats()
         main_out = self.phase("4 main path (showcase, full width)", self.main_path)
         self.phase("5 other configs (full width)", lambda: self.other_configs(main_out))
@@ -282,6 +318,15 @@ class Smoke:
         self.phase("8b kernel route vs wkv_chunked route (rwkv6 full width)",
                    lambda: self.wkv_route_gap(rwkv_out))
         del rwkv_out
+        self.free()
+        torch.cuda.reset_peak_memory_stats()
+        zamba_out = self.phase("7e serving path (protocol_serve_zamba2, zamba2-1.2b full width)",
+                               self.protocol_serve_zamba2)
+        self.phase("7f decode vs kernel prefill, float32 copy (zamba2 full width)",
+                   lambda: self.zamba_decode_vs_prefill(zamba_out))
+        self.phase("8c kernel route vs ssd_chunked route (zamba2 full width)",
+                   lambda: self.ssd_route_gap(zamba_out))
+        del zamba_out
         self.free()
         rows = self.phase("9 timings", self.timings)
         print(json.dumps({"kernels": rows}), flush=True)
@@ -487,6 +532,67 @@ class Smoke:
             del args, y, y2, ry, sf, sf2, rs
         self.free()
 
+    def ssd_inputs(self, b, s, h, p, n, dtype, decay="model", seed=0):
+        """x, dt, a, b, c, d_skip: x, b, c in ``dtype``, the rest float32.
+        ``model``: Δ and a as the model's init gives them (dt_bias in [-4,
+        -2), a_log 0: Δ about 0.05, a = -1, drawn here as softplus(N - 3)
+        and -exp(N / 2)); ``strong``: Δ near 4 and a near -8, so a·Δ sums to
+        about -1,000 over a 32-token chunk."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        shift, scale = (4.0, 8.0) if decay == "strong" else (-3.0, 1.0)
+        x = torch.randn((b, s, h, p), generator=g, device=self.dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=g, device=self.dev) + shift)
+        a = -torch.exp(torch.randn((h,), generator=g, device=self.dev) * 0.5) * scale
+        bb, cc = (torch.randn((b, s, n), generator=g, device=self.dev) * 0.5 for _ in range(2))
+        d = torch.rand((h,), generator=g, device=self.dev)
+        return [x.to(dtype), dt, a, bb.to(dtype), cc.to(dtype), d]
+
+    def ssd_vs_plain(self):
+        torch = self.torch
+        from repro_torch.kernels.mamba2_scan import ops
+        main = tuple(SSD_SHAPE.values())
+        cases = [(main, torch.bfloat16, "model", False)] + [
+            (shape, dt, decay, h0) for shape, decay, h0 in (
+                ((1, 1, 4, 64, 64), "model", True),        # one token
+                ((2, 1040, 4, 64, 64), "model", True),     # the decode's prompt length
+                ((1, 997, 3, 32, 16), "strong", True),     # a prime S, strong decay
+                ((1, 300, 2, 48, 128), "model", False),
+                ((2, 77, 2, 16, 48), "strong", False))
+            for dt in (torch.float32, torch.bfloat16)]
+        for (b, s, h, p, n), dt, decay, with_h0 in cases:
+            args = self.ssd_inputs(b, s, h, p, n, dt, decay)
+            h0 = None
+            if with_h0:
+                g = torch.Generator(device=self.dev).manual_seed(1)
+                h0 = torch.randn((b, h, p, n), generator=g, device=self.dev)
+            y, hf = ops.ssd_kernel(*args, h0)
+            y2, hf2 = ops.ssd_kernel(*args, h0)
+            ry, rh = ops.ssd_plain(*args, h0)
+            bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+            tag = f"B={b} S={s} H={h} P={p} N={n} {dt} decay={decay} h0={with_h0}"
+            check(torch.equal(y.view(bits), y2.view(bits)) and torch.equal(hf, hf2),
+                  f"ssd_scan: two launches differ ({tag})")
+            ey, eh = self.rel(y, ry), self.rel(hf, rh)
+            yf, rf = y.float(), ry.float()
+            ok = bool(torch.isfinite(yf).all()) and bool(torch.isfinite(hf).all())
+            if dt == torch.bfloat16:
+                # one bf16 rounding of y: an ulp is at most 2^-7 of |y|; the
+                # floor covers float32 differences of values near zero
+                ulp = 2.0 ** -7 * rf.abs() + 1e-5 * float(rf.abs().max())
+                ok = ok and bool(((yf - rf).abs() <= ulp).all()) and ey <= 1e-2
+            else:
+                ok = ok and ey <= 1e-4
+            check(ok and eh <= 1e-4, f"ssd_scan beyond its plain version ({tag}): y {ey:.3e}, "
+                                     f"h_final {eh:.3e}")
+            if ((b, s, h, p, n), dt) == (main, torch.bfloat16):
+                self.record_err("ssd_scan", yf, rf)
+            print(f"  ssd_scan ok: {tag}, y rel L2 {ey:.3e} (max abs "
+                  f"{float((yf - rf).abs().max()):.3e}), h_final rel L2 {eh:.3e}", flush=True)
+            del args, y, y2, ry, hf, hf2, rh, yf, rf
+        self.free()
+
     def main_path(self):
         torch = self.torch
         from repro_torch.core.swarm import BEHAVIOURS
@@ -608,7 +714,6 @@ class Smoke:
         """The serving path at full width, on counters of its own; returns
         the launcher's results and the decode's prompts for phases 7b and 8."""
         torch = self.torch
-        from repro_torch.core.protocol import CredentialError, ExtractionError
         from repro_torch.launch import protocol_inference as launch
         from repro_torch.models.attention import cache_length
 
@@ -627,9 +732,33 @@ class Smoke:
         cfg = out["model"].cfg
         check(cfg.use_pallas_kernels and cfg.sliding_window == SWA_SHAPE["window"]
               and cfg.param_count() == 1_831_201_280, "not full-width h2o-danube-1.8b")
+        check(cache_length(DECODE_LEN + DECODE_NEW, cfg.sliding_window) < DECODE_LEN,
+              "the decode's ring does not wrap")
+        self.check_served(out, gen)
+        self.profile_decode_step(out)
+        print(f"  protocol_serve: prefill of {SWA_SHAPE['b']} x {SWA_SHAPE['s']} tokens "
+              f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {DECODE_LEN} -> "
+              f"{DECODE_NEW} new: {stats.tok_per_s:.1f} tok/s (prefill by stepping "
+              f"{stats.prefill_s:.3f} s, decode {stats.decode_s:.3f} s); coalition "
+              f"logits relative L2 {out['extract_rel']:.3f}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del out["server"]
+        return out
+
+    def check_served(self, out, gen):
+        """Phase 7's checks on a served path: refused without credentials;
+        served logits finite and bit-equal to ``Model.prefill(params)``
+        with the full swarm and with node3 offline; a swarm of 2 nodes
+        refused naming the missing shards; a 3-node coalition's logits far
+        from the true ones; the decode on params equal to the true ones,
+        giving tokens in the vocabulary."""
+        torch = self.torch
+        from repro_torch.core.protocol import CredentialError, ExtractionError
+        from repro_torch.launch import protocol_inference as launch
+        cfg = out["model"].cfg
         check(isinstance(out["refused"], CredentialError), "served without credentials")
         logits, ref = out["logits"], out["ref"]
-        check(tuple(logits.shape) == (SWA_SHAPE["b"], cfg.vocab_size)
+        check(tuple(logits.shape) == (out["batch"]["tokens"].shape[0], cfg.vocab_size)
               and bool(torch.isfinite(logits).all()), "served logits not finite or misshapen")
         check(torch.equal(logits, ref), "served logits not bit-equal to Model.prefill(params)")
         check(torch.equal(out["logits_online"], ref),
@@ -642,20 +771,9 @@ class Smoke:
         served = out["server"]._params_cache[frozenset(launch.NODES)]
         check(all(torch.equal(served[k], t) for k, t in out["params"].items()),
               "the params the server decoded with differ from the true ones")
-        check(cache_length(DECODE_LEN + DECODE_NEW, cfg.sliding_window) < DECODE_LEN,
-              "the decode's ring does not wrap")
         check(tuple(gen.shape) == (DECODE_PROMPTS, DECODE_NEW)
               and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
               "decode tokens misshapen or outside the vocabulary")
-        self.profile_decode_step(out)
-        print(f"  protocol_serve: prefill of {SWA_SHAPE['b']} x {SWA_SHAPE['s']} tokens "
-              f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {DECODE_LEN} -> "
-              f"{DECODE_NEW} new: {stats.tok_per_s:.1f} tok/s (prefill by stepping "
-              f"{stats.prefill_s:.3f} s, decode {stats.decode_s:.3f} s); coalition "
-              f"logits relative L2 {out['extract_rel']:.3f}; max_memory_allocated "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-        del out["server"]
-        return out
 
     def profile_decode_step(self, out):
         """One decode step at the decode phase's shape under torch.profiler:
@@ -816,7 +934,6 @@ class Smoke:
         """The serving path on full-width rwkv6-1.6b, on counters of its
         own; phase 7's checks, then a decode of prompts of 1,040 tokens."""
         torch = self.torch
-        from repro_torch.core.protocol import CredentialError, ExtractionError
         from repro_torch.launch import protocol_inference as launch
 
         def drive():
@@ -835,24 +952,7 @@ class Smoke:
         check(cfg.use_pallas_kernels and cfg.family == "ssm" and cfg.d_model == 2048
               and cfg.num_layers == RWKV_LAYERS and out["n_params"] == RWKV_PARAMS,
               "not full-width rwkv6-1.6b")
-        check(isinstance(out["refused"], CredentialError), "served without credentials")
-        logits, ref = out["logits"], out["ref"]
-        check(tuple(logits.shape) == (WKV_SHAPE["b"], cfg.vocab_size)
-              and bool(torch.isfinite(logits).all()), "served logits not finite or misshapen")
-        check(torch.equal(logits, ref), "served logits not bit-equal to Model.prefill(params)")
-        check(torch.equal(out["logits_online"], ref),
-              "logits with node3 offline not bit-equal to Model.prefill(params)")
-        check(isinstance(out["collapsed"], ExtractionError)
-              and "missing shard ids" in str(out["collapsed"]),
-              "a swarm of 2 nodes served, or did not name the missing shards")
-        check(out["extract_rel"] > 0.1, f"a 3-node coalition's logits are close to the "
-                                        f"true ones (relative L2 {out['extract_rel']:.3e})")
-        served = out["server"]._params_cache[frozenset(launch.NODES)]
-        check(all(torch.equal(served[k], t) for k, t in out["params"].items()),
-              "the params the server decoded with differ from the true ones")
-        check(tuple(gen.shape) == (DECODE_PROMPTS, DECODE_NEW)
-              and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
-              "decode tokens misshapen or outside the vocabulary")
+        self.check_served(out, gen)
         self.profile_decode_step(out)
         print(f"  protocol_serve_rwkv6: prefill of {WKV_SHAPE['b']} x {WKV_SHAPE['s']} tokens "
               f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {RWKV_DECODE_LEN} -> "
@@ -979,6 +1079,238 @@ class Smoke:
               f"free-running, the kernel route parts from wkv_chunked ({free_kernel:.3e}) "
               f"more than twice as far as two routes without the kernel ({free_witness:.3e})")
 
+    def protocol_serve_zamba2(self):
+        """The serving path on full-width zamba2-1.2b, on counters of its
+        own; phase 7's checks and the peak memory, then a decode of prompts
+        of 1,040 tokens."""
+        torch = self.torch
+        from repro_torch.launch import protocol_inference as launch
+
+        def drive():
+            out = launch.main(["--arch", "zamba2-1.2b", "--full", "--seq",
+                               str(SSD_SHAPE["s"]), "--batch", str(SSD_SHAPE["b"])])
+            peak = torch.cuda.max_memory_allocated()
+            g = torch.Generator(device=self.dev).manual_seed(7)
+            prompts = torch.randint(0, out["model"].cfg.vocab_size,
+                                    (DECODE_PROMPTS, ZAMBA_DECODE_LEN), generator=g,
+                                    device=self.dev)
+            gen, stats = out["server"].decode("customer", prompts, DECODE_NEW)
+            return out, prompts, gen, stats, peak
+
+        out, prompts, gen, stats, peak = self.counted("protocol_serve_zamba2", drive)
+        out["prompts"] = prompts
+        cfg = out["model"].cfg
+        check(cfg.use_pallas_kernels and cfg.family == "hybrid" and cfg.d_model == 2048
+              and cfg.num_layers == ZAMBA_LAYERS and cfg.sliding_window is None
+              and out["n_params"] == ZAMBA_PARAMS, "not full-width zamba2-1.2b")
+        self.check_served(out, gen)
+        # one (32,768 x 32,768) float32 score matrix of 32 heads is 128 GiB
+        scores = SSD_SHAPE["s"] ** 2 * cfg.num_heads * 4
+        check(peak < 40 * 2**30, f"the served prefill's peak {peak / 2**30:.2f} GiB")
+        self.profile_prefill(out)
+        self.profile_decode_step(out)
+        print(f"  protocol_serve_zamba2: prefill of {SSD_SHAPE['b']} x {SSD_SHAPE['s']} tokens "
+              f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {ZAMBA_DECODE_LEN} -> "
+              f"{DECODE_NEW} new: {stats.tok_per_s:.1f} tok/s (prefill by stepping "
+              f"{stats.prefill_s:.3f} s, decode {stats.decode_s:.3f} s); coalition "
+              f"logits relative L2 {out['extract_rel']:.3f}; max_memory_allocated "
+              f"{peak / 2**30:.2f} GiB through the served prefills (one full score matrix "
+              f"would be {scores / 2**30:.0f} GiB), "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB with the decode",
+              flush=True)
+        del out["server"]
+        return out
+
+    def profile_prefill(self, out):
+        """One served prefill (``Model.prefill`` of phase 7e's batch) under
+        torch.profiler: device time, its share of the host time, and the
+        kernels that take most of it."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        model, params, batch = out["model"], out["params"], out["batch"]
+        with torch.inference_mode():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.prefill(params, batch)
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3
+
+        def self_dev(e):
+            return (getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0) or 0) / 1e3
+
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(self_dev(e) for e in events)
+        print(f"  one served prefill (profiled): {sum(e.count for e in events)} device ops, "
+              f"{dev_ms:.1f} ms of device time in {host_ms:.1f} ms", flush=True)
+        for e in sorted(events, key=self_dev, reverse=True)[:10]:
+            print(f"    {self_dev(e):9.2f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+
+    def zamba_decode_vs_prefill(self, out):
+        """Decode against the kernel prefill on a float32 copy of the params,
+        teacher-forced on phase 7e's prompts: each layer takes the kernel
+        prefill's input to it, through the prefill (the SSD kernel's
+        h_final, the shared block's k, v) and stepped token by token
+        through ``mamba_block_decode`` / ``layer_decode`` into a cache.
+        Held: each mamba layer's state, each application's K/V cache, each
+        layer's update and the last logits.  Then ``decode_scan``
+        free-running from a zero cache: its gaps are printed."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from dataclasses import replace
+        from repro_torch.models import hybrid as Hy
+        from repro_torch.models import mamba2 as M
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import rms_norm
+        from repro_torch.models.model import build_model
+        cfg = replace(out["model"].cfg, dtype="float32")
+        prompts = out["prompts"]
+        b, s = prompts.shape
+        params = {k: t.float() for k, t in out["params"].items()}
+        model = build_model(cfg)
+        groups, rem = Hy.mamba_layers(params, cfg)
+        sp = Hy.shared_block(params)
+        m = cfg.mamba_per_group
+        positions = torch.arange(s, device=self.dev).expand(b, s)
+        h_finals, state_gaps, kv_gaps, upd_gaps = [], [], [], []
+
+        def mamba(lp, x, h, conv):
+            xin = rms_norm(x, lp["ln"], cfg.norm_eps)
+            o, hf = M.mamba_block_state(lp, cfg, xin)                  # the kernel prefill
+            stepped = torch.cat([M.mamba_block_decode(lp, cfg, xin[:, t:t + 1], h, conv)
+                                 for t in range(s)], dim=1)
+            h_finals.append(hf)
+            state_gaps.append(self.rel(h, hf))
+            upd_gaps.append(self.rel(stepped, o))
+            return x + o, x + stepped
+
+        def shared(x, kc, vc):
+            y = T._layer_apply(sp, cfg, x, positions)
+            _, k, v = T._qkv(sp, cfg, rms_norm(x, sp["ln_attn"], cfg.norm_eps), positions)
+            stepped = torch.cat([T.layer_decode(sp, cfg, x[:, t:t + 1], kc, vc, t)
+                                 for t in range(s)], dim=1)
+            kv_gaps.append(max(self.rel(kc, k), self.rel(vc, v)))
+            upd_gaps.append(self.rel(stepped - x, y - x))
+            return y, stepped
+
+        with torch.inference_mode():
+            cache = model.init_cache(b, s, self.dev)
+            x = F.embedding(prompts, params["embed"])
+            for gi in range(len(groups) // m):
+                for li in range(m):
+                    x, last = mamba(groups[gi * m + li], x, cache["mamba_g"]["h"][gi, li],
+                                    cache["mamba_g"]["conv"][gi, li])
+                x, last = shared(x, cache["attn_k"][gi], cache["attn_v"][gi])
+            for ri, lp in enumerate(rem):
+                x, last = mamba(lp, x, cache["mamba_rem"]["h"][ri], cache["mamba_rem"]["conv"][ri])
+            pre = self.last_logits(params, cfg, x)
+            gap = self.rel(self.last_logits(params, cfg, last), pre)
+            del cache, x, last
+            logits, free = model.decode_scan(params, prompts, model.init_cache(b, s, self.dev))
+            free_h = list(free["mamba_g"]["h"].flatten(0, 1))
+            if "mamba_rem" in free:
+                free_h += list(free["mamba_rem"]["h"])
+            free_states = [self.rel(hs, hf) for hs, hf in zip(free_h, h_finals)]
+            free_gap = self.rel(logits[:, -1], pre)
+            del params, free, logits, h_finals
+            self.free()
+        print(f"  float32 copy, {b} x {s} tokens, teacher-forced: SSD states vs the kernel's "
+              f"h_final within {max(state_gaps):.3e} relative L2 (worst of {len(state_gaps)} "
+              f"layers), K/V caches {max(kv_gaps):.3e} (worst of {len(kv_gaps)}), layer "
+              f"updates {max(upd_gaps):.3e}, last logits {gap:.3e}", flush=True)
+        print(f"  free-running decode_scan: SSD states vs the kernel's h_final per layer "
+              f"{[float(f'{g:.2e}') for g in free_states]}, last logits {free_gap:.3e} "
+              f"(printed, not held)", flush=True)
+        check(max(state_gaps) <= 1e-4 and max(kv_gaps) <= 1e-5 and max(upd_gaps) <= 1e-3
+              and gap <= 1e-3,
+              f"decode and the kernel prefill differ on the float32 copy (states "
+              f"{max(state_gaps):.3e}, bound 1e-4; K/V {max(kv_gaps):.3e}, bound 1e-5; "
+              f"updates {max(upd_gaps):.3e} and logits {gap:.3e}, bound 1e-3)")
+
+    def ssd_route_gap(self, out):
+        """The served zamba2 prefill's SSD kernel route against the
+        ``ssd_chunked`` route (``use_pallas_kernels`` off).  Teacher-forced:
+        at each of the 38 mamba layers both routes take the kernel route's
+        input, and the layer's update and the last layer's logits must
+        agree within 1e-2 relative L2 (the shared block is the same on both
+        routes).  Free-running, the kernel route's logit gap to
+        ``ssd_chunked`` is held to at most twice the gap between two routes
+        without the kernel (``ssd_plain`` in its place), or 1e-2."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from dataclasses import replace
+        from repro_torch.core.serving import device_clock
+        from repro_torch.kernels.mamba2_scan import ops
+        from repro_torch.models import hybrid as Hy
+        from repro_torch.models import mamba2 as M
+        from repro_torch.models import transformer as T
+        from repro_torch.models.common import rms_norm
+        from repro_torch.models.model import build_model
+
+        cfg_k = out["model"].cfg
+        cfg_c = replace(cfg_k, use_pallas_kernels=False)
+        params, tokens = out["params"], out["batch"]["tokens"]
+        groups, rem = Hy.mamba_layers(params, cfg_k)
+        sp = Hy.shared_block(params)
+        m = cfg_k.mamba_per_group
+        order = []
+        for gi in range(len(groups) // m):
+            order += groups[gi * m:(gi + 1) * m] + [None]        # None: the shared block
+        order += rem
+        kernel_entry = M.ssd
+
+        def plain_layer(lp, h):                   # ssd_plain for the kernel
+            M.ssd = ops.ssd_plain
+            try:
+                return Hy._mamba_layer(lp, cfg_k, h)
+            finally:
+                M.ssd = kernel_entry
+
+        with torch.inference_mode():
+            t0 = device_clock(self.dev)
+            free = build_model(cfg_c).prefill(params, out["batch"])
+            dt = device_clock(self.dev) - t0
+            x = y = z = F.embedding(tokens, params["embed"])
+            positions = torch.arange(tokens.shape[1], device=self.dev).expand(tokens.shape)
+            gaps, free_gaps, witness_gaps = [], [], []
+            for lp in order:
+                if lp is None:
+                    a = b = T._layer_apply(sp, cfg_k, x, positions)
+                    y = T._layer_apply(sp, cfg_c, y, positions)
+                    z = T._layer_apply(sp, cfg_k, z, positions)
+                else:
+                    # the block's update, as _mamba_layer adds it to x
+                    h = rms_norm(x, lp["ln"], cfg_k.norm_eps)
+                    ua, ub = (M.mamba_block_apply(lp, c, h) for c in (cfg_k, cfg_c))
+                    a, b = x + ua, x + ub
+                    y = Hy._mamba_layer(lp, cfg_c, y)   # the ssd_chunked route, free
+                    z = plain_layer(lp, z)              # the plain route, free
+                    gaps.append(self.rel(ua, ub))
+                free_gaps.append(self.rel(a, y))
+                witness_gaps.append(self.rel(z, y))
+                x = a
+            la, lb = (self.last_logits(params, cfg_k, h) for h in (a, b))
+            free_kernel = self.rel(out["ref"], free)
+            free_witness = self.rel(self.last_logits(params, cfg_k, z), free)
+        gap = self.rel(la, lb)
+        print(f"  kernel route vs ssd_chunked route, teacher-forced: layer updates within "
+              f"{max(gaps):.3e} relative L2 (worst of {len(gaps)} mamba layers), logits "
+              f"{gap:.3e}; the kernel route's logits equal the served ones: "
+              f"{bool(torch.equal(la, out['ref']))}", flush=True)
+        print(f"  free-running: kernel vs ssd_chunked logits {free_kernel:.3e}, hidden states "
+              f"after each layer {[float(f'{g:.2e}') for g in free_gaps]}", flush=True)
+        print(f"  free-running, no kernel on either side: ssd_plain vs ssd_chunked logits "
+              f"{free_witness:.3e}, hidden states after each layer "
+              f"{[float(f'{g:.2e}') for g in witness_gaps]}; ssd_chunked prefill {dt:.3f} s "
+              f"vs kernel route {out['prefill_s']:.3f} s", flush=True)
+        check(max(gaps) <= 1e-2 and gap <= 1e-2,
+              f"kernel and ssd_chunked routes differ beyond 1e-2 (layers {max(gaps):.3e}, "
+              f"logits {gap:.3e})")
+        check(free_kernel <= max(1e-2, 2 * free_witness),
+              f"free-running, the kernel route parts from ssd_chunked ({free_kernel:.3e}) "
+              f"more than twice as far as two routes without the kernel ({free_witness:.3e})")
+
     def time_ms(self, fn, reps):
         torch = self.torch
         fn()
@@ -1041,6 +1373,7 @@ class Smoke:
         self.free()
         rows.append(self.swa_row())
         rows.append(self.wkv_row())
+        rows.append(self.ssd_row())
         return rows
 
     def wkv_row(self):
@@ -1056,6 +1389,22 @@ class Smoke:
         nbytes = 5 * b * s * h * k * 2 + h * k * 4 + b * h * k * k * 4
         return self.row("wkv_scan", lambda: ops.wkv_kernel(*args),
                         lambda: ops.wkv_plain(*args), None, nbytes, 4 * k * k * b * s * h)
+
+    def ssd_row(self):
+        """ssd_scan at the zamba2 serving prefill's shape (h0 none, as the
+        prefill calls it).  No single PyTorch call computes the SSD, so the
+        library column is empty.  Bytes: x read and y written (bf16), Δ
+        read (float32), B and C read (bf16), a and d_skip read and h_final
+        written (float32); operations: 4 N P flops a token and head (the
+        state update and y = h C, 2 N P each)."""
+        torch = self.torch
+        from repro_torch.kernels.mamba2_scan import ops
+        b, s, h, p, n = SSD_SHAPE.values()
+        args = self.ssd_inputs(b, s, h, p, n, torch.bfloat16, seed=3)
+        nbytes = (2 * b * s * h * p * 2 + b * s * h * 4 + 2 * b * s * n * 2 + 2 * h * 4
+                  + b * h * p * n * 4)
+        return self.row("ssd_scan", lambda: ops.ssd_kernel(*args),
+                        lambda: ops.ssd_plain(*args), None, nbytes, 4 * n * p * b * s * h)
 
     def swa_row(self):
         """swa_attention at the serving prefill's shape.  The library call is

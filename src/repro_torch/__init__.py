@@ -14,5 +14,6 @@ masked aggregation, the QSGD wire, audits, the ledger and the ``Swarm``
 engine — with the four masked-aggregation / QSGD-decode kernels (slice
 1); Protocol Model serving on h2o-danube-1.8b with the sliding-window
 attention kernel (slice 2); rwkv6-1.6b served through the same server,
-with the WKV recurrence kernel (slice 3).
+with the WKV recurrence kernel (slice 3); zamba2-1.2b served through it,
+with the Mamba2 SSD scan kernel (slice 4).
 """

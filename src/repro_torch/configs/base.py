@@ -75,12 +75,13 @@ class ModelConfig:
     dtype: str = "bfloat16"             # activations/params compute dtype
 
     # Kernel compute paths (INFERENCE-ONLY): when set, sliding-window
-    # attention of a full sequence and rwkv6's WKV run the CUDA kernels on
-    # CUDA tensors and their plain versions on CPU tensors
-    # (``kernels/swa_attention/ops.py``, ``kernels/rwkv6_wkv/ops.py``).
-    # Neither has a backward, so the wrappers raise on inputs that require
-    # grad; training keeps the flag off and takes ``models.attention._swa``
-    # and ``models.rwkv6.wkv_chunked``.
+    # attention of a full sequence, rwkv6's WKV and Mamba2's SSD scan run
+    # the CUDA kernels on CUDA tensors and their plain versions on CPU
+    # tensors (``kernels/swa_attention/ops.py``, ``kernels/rwkv6_wkv/ops.py``,
+    # ``kernels/mamba2_scan/ops.py``).  None has a backward, so the wrappers
+    # raise on inputs that require grad; training keeps the flag off and
+    # takes ``models.attention._swa``, ``models.rwkv6.wkv_chunked`` and
+    # ``models.mamba2.ssd_chunked``.
     use_pallas_kernels: bool = False
 
     # training

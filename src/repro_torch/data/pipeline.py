@@ -8,9 +8,9 @@ states and branch choices come from the port's key schedule
 (``random.generator``), so tokens differ from JAX's.  They are drawn on the
 CPU and then moved, so a batch is the same on every device.
 
-The LM batch serves the dense and SSM (rwkv6) families, as in the
-reference; the VLM and audio branches of ``model_batch`` wait for their
-model families (ROADMAP queue 1, item 11), and zamba2 for item 2.
+The LM batch serves the dense, SSM (rwkv6) and hybrid (zamba2) families,
+as in the reference; the VLM and audio branches of ``model_batch`` wait
+for their model families (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, SSM, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.random import _DATA, generator
 
@@ -71,10 +71,10 @@ def lm_batch(cfg: DataConfig, step: int, *, shard: int = 0,
 
 def model_batch(mcfg: ModelConfig, cfg: DataConfig, step: int, *, shard: int = 0,
                 num_shards: int = 1, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    if mcfg.family not in (DENSE, SSM):
+    if mcfg.family not in (DENSE, SSM, HYBRID):
         raise NotImplementedError(
             f"model_batch for the {mcfg.family!r} family waits for its model "
-            "slice (ROADMAP queue 1, items 2 and 11)")
+            "slice (ROADMAP queue 1, item 11)")
     return lm_batch(cfg, step, shard=shard, num_shards=num_shards,
                     device=device)
 

@@ -21,7 +21,8 @@ from typing import Callable, Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = {"masked_agg": "masked_agg.cu", "qsgd_decode": "qsgd_decode.cu",
-           "swa_attention": "swa_attention.cu", "rwkv6_wkv": "rwkv6_wkv.cu"}
+           "swa_attention": "swa_attention.cu", "rwkv6_wkv": "rwkv6_wkv.cu",
+           "mamba2_ssd": "mamba2_ssd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,6 +8,8 @@ inference where the weights never leave the protocol.  The port's twin of
         --seq 32768 --batch 1                                    # 1,831,201,280 params
     python -m repro_torch.launch.protocol_inference --arch rwkv6-1.6b --full \\
         --seq 32768 --batch 1                                    # 1,590,235,136 params
+    python -m repro_torch.launch.protocol_inference --arch zamba2-1.2b --full \\
+        --seq 32768 --batch 1                                    # 1,170,157,696 params
 
 Shows (1) credential gating and transferable credentials, (2) that serving
 needs the live swarm (it survives one departure at redundancy 2, and a
@@ -16,9 +18,11 @@ coalition reassembles only garbage, and (4) the extraction-vs-retrain
 economics that define a Protocol Model.  8 nodes, 16 custody shards,
 redundancy 2, at most 35% of the model on one node.  The config is built
 with ``use_pallas_kernels`` set, so on the card each prefill of a
-sliding-window model runs the attention kernel, and each prefill of rwkv6
-the WKV kernel.  At the reduced width rwkv6 has 8 WKV heads of 32
-(``ModelConfig.reduced``).  The parameter count, printed and used in the
+sliding-window model runs the attention kernel, each prefill of rwkv6 the
+WKV kernel, and each prefill of zamba2 the SSD scan kernel once per mamba
+layer (38 at full width).  At the reduced width (``ModelConfig.reduced``)
+rwkv6 has 8 WKV heads of 32, and zamba2 4 groups of 1 mamba layer with 16
+SSD heads of 32 and state 16.  The parameter count, printed and used in the
 economics, is that of the params built.
 """
 from __future__ import annotations

@@ -4,6 +4,7 @@
     python -m repro_torch.launch.serve                    # reduced protocol-125m, on the card
     python -m repro_torch.launch.serve --arch h2o-danube-1.8b --full
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --full   # 1,170,157,696 params
     python -m repro_torch.launch.serve --device cpu --driver loop
 
 - ``--driver scan`` (default) and ``--driver loop``: ``core.serving.
@@ -40,7 +41,8 @@ def serving_config(arch: str, full: bool, **reduced) -> ModelConfig:
 
 def count_params(params) -> int:
     """The number of parameters built (``ModelConfig.param_count`` is an
-    analytic formula, which for rwkv6 counts ``cm_r`` as d x d_ff)."""
+    analytic formula, which for rwkv6 counts ``cm_r`` as d x d_ff and for
+    zamba2 omits ``dt_bias``)."""
     return sum(t.numel() for t in params.values())
 
 

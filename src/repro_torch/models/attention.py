@@ -3,10 +3,12 @@ with a ring buffer (twin of ``repro/models/attention.py``).
 
 Layouts are the reference's: q (B, S, Hq, hd), k and v (B, S, Hkv, hd).
 
-- Full causal attention: the reference computes it as a blockwise online
-  softmax in float32; the port computes the same function as one plain
-  einsum-softmax-einsum in float32 (at the sequence lengths it runs full
-  attention there is a single block, where the two coincide).
+- Full attention (no window): the reference's blockwise online softmax in
+  float32, over q blocks of ``q_block`` and kv blocks of ``kv_block``
+  tokens (each halved until it divides its length), so no (Sq, Skv) score
+  matrix is ever held: a 32,768-token prompt holds one (1,024 x 1,024)
+  block of scores per head at a time.  Causal kv blocks strictly above the
+  diagonal are skipped.
 - Sliding window: with ``use_pallas`` and Sq == Skv, the kernel of
   ``kernels/swa_attention`` (CUDA on the card, its plain version on the
   CPU); otherwise :func:`_swa`, the reference's banded float32 twin, which
@@ -35,31 +37,58 @@ def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
-              q_block: int = 1024, use_pallas: bool = False) -> torch.Tensor:
+              q_block: int = 1024, kv_block: int = 1024,
+              use_pallas: bool = False) -> torch.Tensor:
     """q (B, Sq, Hq, hd), k/v (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
     b, sq, hq, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    q_block = min(q_block, sq)
+    while sq % q_block:
+        q_block //= 2
     if window is not None:
         if use_pallas and sq == skv:
             return swa_attention(q, k, v, window=window)
-        q_block = min(q_block, sq)
-        while sq % q_block:
-            q_block //= 2
         return _swa(_grouped(q, hkv), k, v, window=window, q_block=q_block,
                     scale=hd ** -0.5)
-    qg = _grouped(q, hkv).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * hd ** -0.5
-    if causal:
-        qpos = torch.arange(sq, device=q.device)
-        kpos = torch.arange(skv, device=q.device)
-        s = torch.where(qpos[:, None] >= kpos[None, :], s,
-                        torch.full((), NEG_INF, device=q.device))
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = torch.sum(p, dim=-1)                                  # (b, k, g, q)
-    pv = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    out = pv / torch.clamp(l.permute(0, 3, 1, 2), min=1e-30)[..., None]
-    return out.reshape(b, sq, hq, hd).to(q.dtype)
+    kv_block = min(kv_block, skv)
+    while skv % kv_block:
+        kv_block //= 2
+    qg = _grouped(q, hkv)
+    out = torch.empty(qg.shape, dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, q_block):
+        qcur = qg[:, q0:q0 + q_block].float()
+        qpos = q0 + torch.arange(q_block, device=q.device)
+        m = l = acc = None
+        for k0 in range(0, skv, kv_block):
+            if causal and k0 > q0 + q_block - 1:
+                # strictly above the diagonal: every score is masked, and the
+                # reference's scan adds exp(-1e30 - m) == 0 exactly, so
+                # skipping these blocks gives the same bits
+                break
+            s = torch.einsum("bqkgd,bskd->bkgqs", qcur,
+                             k[:, k0:k0 + kv_block].float()) * hd ** -0.5
+            if causal and k0 + kv_block - 1 > q0:     # a block wholly below keeps every score
+                kpos = k0 + torch.arange(kv_block, device=q.device)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s,
+                                torch.full((), NEG_INF, device=q.device))
+            vcur = v[:, k0:k0 + kv_block].float()
+            if m is None:
+                # the first block: the reference's update from m = -1e30,
+                # l = acc = 0, where exp(-1e30 - m) is exactly 0
+                m = torch.amax(s, dim=-1)                          # (b, k, g, q)
+                p = torch.exp(s - m[..., None])
+                l = torch.sum(p, dim=-1)
+                acc = torch.einsum("bkgqs,bskd->bqkgd", p, vcur)
+                continue
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + torch.sum(p, dim=-1)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + torch.einsum(
+                "bkgqs,bskd->bqkgd", p, vcur)
+            m = m_new
+        out[:, q0:q0 + q_block] = acc / torch.clamp(l.permute(0, 3, 1, 2), min=1e-30)[..., None]
+    return out.reshape(b, sq, hq, hd)
 
 
 def _swa(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,

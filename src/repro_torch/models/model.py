@@ -1,8 +1,9 @@
 """``build_model(cfg)``: a model of a ported family as an ``nn.Module``
 (twin of ``repro/models/model.py``).  The family picks the module, as the
 reference's ``_family_module`` does: dense models run in
-``models/transformer.py``, rwkv6 (the SSM family) in ``models/rwkv6.py``;
-the other families raise ``NotImplementedError`` naming their ROADMAP item.
+``models/transformer.py``, rwkv6 (the SSM family) in ``models/rwkv6.py``,
+zamba2 (the hybrid family) in ``models/hybrid.py``; the other families
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 The swarm works on param dicts functionally, as the reference does, so the
 module's own surface is thin: ``init`` draws a fresh param dict,
@@ -22,7 +23,7 @@ from torch import nn
 
 from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import hybrid, rwkv6, transformer
 from repro_torch.models.convert import flat_order
 
 Params = Dict[str, torch.Tensor]
@@ -34,9 +35,10 @@ def family_module(cfg: ModelConfig):
         return transformer
     if cfg.family == SSM:
         return rwkv6
-    item = "item 2" if cfg.family == HYBRID else "item 11"
+    if cfg.family == HYBRID:
+        return hybrid
     raise NotImplementedError(f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-                              f"(ROADMAP queue 1, {item})")
+                              "(ROADMAP queue 1, item 11)")
 
 
 class Model(nn.Module):
@@ -89,8 +91,9 @@ class Model(nn.Module):
 
     def concrete_batch(self, seed: int, batch: int, seq: int,
                        device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-        """A small concrete batch of random tokens and labels (the dense and
-        SSM families: the reference adds media and frames for the others)."""
+        """A small concrete batch of random tokens and labels (the dense,
+        SSM and hybrid families: the reference adds media and frames for the
+        others)."""
         g = torch.Generator().manual_seed(seed)
         out = {"tokens": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g),
                "labels": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g)}

@@ -5,9 +5,9 @@ reference's nested tree (``layers.attn.wq`` is ``params["layers"]["attn"]
 ["wq"]`` there).  Layer weights are **stacked over layers** as in JAX —
 ``layers.attn.wq`` is one (L, d, H, hd) tensor — and the layers are applied
 in a Python loop.  This module runs the dense family, with full or
-sliding-window attention; rwkv6 runs in ``models/rwkv6.py``, zamba2 waits
-for its slice (ROADMAP queue 1, item 2), MoE, VLM and the others for item
-11.
+sliding-window attention; rwkv6 runs in ``models/rwkv6.py``, zamba2 in
+``models/hybrid.py`` (which takes its shared block's ``_qkv`` from here),
+MoE, VLM and the others wait for ROADMAP queue 1, item 11.
 
 Serving: :func:`prefill` is the full forward returning the last position's
 logits; :func:`decode_step` feeds one token per sequence through a KV cache
@@ -35,8 +35,8 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family != DENSE:
         raise NotImplementedError(
             f"{cfg.name}: models/transformer.py runs the dense family (rwkv6 runs "
-            "in models/rwkv6.py; zamba2: ROADMAP queue 1, item 2; the other "
-            "families: item 11)")
+            "in models/rwkv6.py, zamba2 in models/hybrid.py; the other families: "
+            "ROADMAP queue 1, item 11)")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
