@@ -16,6 +16,14 @@ Phases, each timed with CUDA events:
    rows masked): the median bit-equal, CenteredClip within 3e-5, krum's d2
    selection-equal and within 1e-5 of the squared norms of both its plain
    version and a float64 gram, decode-accumulate within 1e-6;
+2b. the QSGD encode kernel against its plain version at the showcase's
+   wire (one node's D values, buckets of 512, 127 levels; 317,222 buckets,
+   the last ragged), at compressed_wire's 64 / 512, at the global-norm
+   surface (ceil(D / 128) lanes, one norm) and at ragged lengths (7, 1,000,
+   255; levels 16, 64, 127), codes equal; the unmasked CenteredClip
+   iteration against its plain version at (10, D) and at k = 1, 2, 3, 7 with
+   D = 257 and 1,000, fixed and adaptive tau, within 3e-5, two launches
+   bit-equal;
 3. the sliding-window attention kernel against its plain version at the
    prefill's shape (B 1, S 32,768, H 32 / Hkv 8, hd 80, window 4,096, bf16)
    and at ragged ones (S not a multiple of the tile, a window below a tile
@@ -45,6 +53,15 @@ Phases, each timed with CUDA events:
    same draws; equal audits and masks, close aggregate and params; then two
    more showcase rounds timed, and one under torch.profiler (device time by
    kernel, the device's busy share);
+4b. the sequential engine's path: ``python -m repro_torch.launch.swarm
+   --full --rounds 3 --engine sequential`` (the showcase on the per-node
+   ``SequentialSwarm``: the dense median warm start and the unmasked
+   CenteredClip kernel over the compacted survivors), with phase 4's checks
+   and its peak memory; one round under torch.profiler;
+6c. the sequential engine against the batched one at full width: round 0
+   of the showcase from the same init and seed (so the same draws); equal
+   ``n_active``, ``caught`` and minted nodes, the two aggregates within
+   1e-5 relative L2;
 7. the serving path (``protocol_serve``): ``python -m
    repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
    --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
@@ -103,11 +120,12 @@ Phases, each timed with CUDA events:
 9. time each kernel, its plain version and the matching PyTorch library
    call where one exists, at the main paths' shapes.
 
-Each driven path (phases 4, 5, 7, 7c and 7e) has launch counters of its own:
+Each driven path (phases 4, 4b, 5, 7, 7c and 7e) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
-Output: one line per phase, then a ``{"kernels": [...]}`` JSON line, the
+Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (all
+nine kernels), the
 card's ``name, power.limit`` from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -160,6 +178,10 @@ KERNELS = {
     "qsgd_decode_accumulate": ("src/repro_torch/csrc/qsgd_decode.cu",
                                "src/repro/kernels/qsgd_decode/kernel.py:41",
                                "compressed_wire"),
+    "qsgd_encode": ("src/repro_torch/csrc/qsgd_encode.cu",
+                    "src/repro/kernels/qsgd/kernel.py:41", "showcase"),
+    "cc_iter": ("src/repro_torch/csrc/centered_clip.cu",
+                "src/repro/kernels/centered_clip/kernel.py:48", "showcase_sequential"),
     "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
                       "src/repro/kernels/swa_attention/kernel.py:65", "protocol_serve"),
     "wkv_scan": ("src/repro_torch/csrc/rwkv6_wkv.cu",
@@ -169,12 +191,16 @@ KERNELS = {
 }
 
 # launches each driven path must make (kernels not named: none).  A
-# CenteredClip round warm-starts from one median and runs 3 iterations.
+# CenteredClip round warm-starts from one median and runs 3 iterations; a
+# fused qsgd round encodes each node's row once.
 EXPECTED_LAUNCHES = {
     "showcase": {"masked_median": SHOWCASE_ROUNDS,
-                 "masked_cc_iter": 3 * SHOWCASE_ROUNDS},
+                 "masked_cc_iter": 3 * SHOWCASE_ROUNDS,
+                 "qsgd_encode": N_NODES * SHOWCASE_ROUNDS},
+    "showcase_sequential": {"masked_median": SHOWCASE_ROUNDS,
+                            "cc_iter": 3 * SHOWCASE_ROUNDS},
     "krum": {"masked_krum_d2": 1},
-    "compressed_wire": {"qsgd_decode_accumulate": 1},
+    "compressed_wire": {"qsgd_decode_accumulate": 1, "qsgd_encode": N_NODES},
     "sign_flip_minority": {"masked_median": 1, "masked_cc_iter": 3},
     "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
     "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
@@ -268,12 +294,15 @@ class Smoke:
     def counted(self, path, fn):
         """Run ``fn`` with every launch counter at 0 and hold the counts
         just after it to ``EXPECTED_LAUNCHES[path]``."""
+        from repro_torch.kernels.centered_clip import ops as cc
         from repro_torch.kernels.mamba2_scan import ops as ssd
         from repro_torch.kernels.masked_agg import ops as magg
+        from repro_torch.kernels.qsgd import ops as qenc
         from repro_torch.kernels.qsgd_decode import ops as qdec
         from repro_torch.kernels.rwkv6_wkv import ops as wkv
         from repro_torch.kernels.swa_attention import ops as swa
-        counters = (magg.LAUNCHES, qdec.LAUNCHES, swa.LAUNCHES, wkv.LAUNCHES, ssd.LAUNCHES)
+        counters = (magg.LAUNCHES, qdec.LAUNCHES, qenc.LAUNCHES, cc.LAUNCHES, swa.LAUNCHES,
+                    wkv.LAUNCHES, ssd.LAUNCHES)
         for d in counters:
             for k in d:
                 d[k] = 0
@@ -290,6 +319,7 @@ class Smoke:
         torch = self.torch
         self.phase("1 build kernels", self.build_kernels)
         self.phase("2 swarm kernels vs plain", self.kernels_vs_plain)
+        self.phase("2b qsgd_encode and cc_iter vs plain", self.encode_and_cc_vs_plain)
         self.phase("3 swa_attention vs plain", self.swa_vs_plain)
         self.phase("3b wkv_scan vs plain", self.wkv_vs_plain)
         self.phase("3c ssd_scan vs plain", self.ssd_vs_plain)
@@ -298,7 +328,13 @@ class Smoke:
         self.phase("5 other configs (full width)", lambda: self.other_configs(main_out))
         self.phase("6 fused vs unfused", lambda: self.fused_vs_unfused(main_out))
         self.phase("6b showcase rounds timed and profiled",
-                   lambda: self.profile_rounds(main_out))
+                   lambda: self.profile_rounds(main_out["swarm"]))
+        seq_out = self.phase("4b sequential engine (showcase_sequential, full width)",
+                             self.sequential_path)
+        del seq_out
+        self.free()
+        self.phase("6c sequential vs batched engine, round 0 (full width)",
+                   lambda: self.engines_agree(main_out))
         del main_out
         self.free()
         torch.cuda.reset_peak_memory_stats()
@@ -671,12 +707,136 @@ class Smoke:
         check(agg_rel <= 1e-5, "agg_norm differs fused vs unfused beyond 1e-5")
         check(par_rel <= 1e-2, "params differ fused vs unfused beyond 1e-2 of the update")
 
-    def profile_rounds(self, main_out):
-        """Two more showcase rounds timed on the host clock, then one under
-        torch.profiler: device time by kernel and the device's busy share."""
+    def encode_and_cc_vs_plain(self):
+        """Phase 2b: the QSGD encode kernel's codes equal to its plain
+        version's, and the unmasked CenteredClip iteration within 3e-5 of
+        its plain version, at the main paths' shapes and ragged ones."""
+        torch = self.torch
+        from repro_torch.core import compression
+        from repro_torch.kernels.centered_clip import ops as cc
+        from repro_torch.kernels.qsgd import ops as qenc
+
+        def encode_case(x, bucket, levels, tag, main=False):
+            nb = -(-x.numel() // bucket)
+            g = torch.Generator(device=self.dev).manual_seed(nb + levels)
+            u = torch.rand((nb, bucket), generator=g, device=self.dev)
+            norms = compression.bucket_norms(compression.pad_buckets(x, bucket)).reshape(-1)
+            out = qenc.qsgd_encode_kernel(x, u, norms, levels=levels, bucket_size=bucket)
+            ref = qenc.qsgd_encode_plain(x, u, norms, levels=levels, bucket_size=bucket)
+            check(torch.equal(out, ref), f"qsgd_encode codes differ from plain ({tag})")
+            if main:
+                self.record_err("qsgd_encode", out.float(), ref.float())
+            print(f"  qsgd_encode codes equal: {tag}, {nb} buckets", flush=True)
+
+        x = self.stack(1, D_FULL, seed=21)[0]
+        encode_case(x, 512, 127, f"showcase wire L={D_FULL} bucket 512 levels 127", main=True)
+        encode_case(x, BUCKET, LEVELS_WIRE, f"compressed_wire L={D_FULL} bucket {BUCKET} "
+                                            f"levels {LEVELS_WIRE}")
+        lanes = -(-D_FULL // qenc.LANE) * qenc.LANE
+        g = torch.Generator(device=self.dev).manual_seed(3)
+        u = torch.rand((lanes // qenc.LANE, qenc.LANE), generator=g, device=self.dev)
+        codes, norm = qenc.qsgd_encode(x, u, levels=127)
+        ref = qenc.qsgd_encode_plain(x, u, norm.reshape(1), levels=127, bucket_size=lanes)
+        check(torch.equal(codes, ref), "qsgd_encode codes differ from plain (global norm)")
+        print(f"  qsgd_encode codes equal: global-norm surface, {lanes // qenc.LANE} lanes",
+              flush=True)
+        del x, u, codes, ref
+        self.free()
+        for size in (7, 1000, 3 * 5 * 17):
+            for levels in (16, 64, 127):
+                x = self.stack(1, size, seed=size)[0]
+                encode_case(x, -(-size // qenc.LANE) * qenc.LANE, levels,
+                            f"L={size} one bucket levels {levels}")
+                encode_case(x, 128, levels, f"L={size} bucket 128 levels {levels}")
+
+        cases = [(N_NODES, D_FULL)] + [(k, d) for k in (1, 2, 3, 7) for d in (257, 1000)]
+        for k, d in cases:
+            x = self.stack(k, d, seed=k)
+            v = self.stack(1, d, seed=99)[0] * 0.5
+            for tau in (2.0, None):
+                o = cc.cc_iter(x, v, clip_tau=tau)
+                again = cc.cc_iter(x, v, clip_tau=tau)
+                r = cc.cc_iter_plain(x, v, tau)
+                tag = f"k={k} D={d} tau={tau}"
+                check(torch.equal(o, again), f"cc_iter: two launches differ ({tag})")
+                check(bool(((o - r).abs() <= 3e-5 + 3e-5 * r.abs()).all()),
+                      f"cc_iter beyond 3e-5 of its plain version ({tag})")
+                err = self.record_err("cc_iter", o, r) if (k, d) == cases[0] else \
+                    float((o - r).abs().max())
+                print(f"  cc_iter ok: {tag}, max abs err {err:.3e}", flush=True)
+                del o, again, r
+            del x, v
+            self.free()
+
+    def sequential_path(self):
+        """Phase 4b: the showcase on the sequential engine at full width,
+        on counters of its own, with phase 4's checks; then more rounds
+        timed and one profiled."""
+        torch = self.torch
+        from repro_torch.core.swarm import BEHAVIOURS, SequentialSwarm
+        from repro_torch.launch import swarm as launch
+        held = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        out = self.counted("showcase_sequential", lambda: launch.main(
+            ["--full", "--rounds", str(SHOWCASE_ROUNDS), "--engine", "sequential"]))
+        sw = out["swarm"]
+        byz = {n.node_id for n in sw.nodes if n.byzantine in BEHAVIOURS[1:]}
+        check(isinstance(sw, SequentialSwarm), "not the sequential engine")
+        check(all(math.isfinite(l) for l in out["losses"]), "non-finite loss")
+        check(sw.slashed <= byz, f"honest node slashed: {sorted(sw.slashed - byz)}")
+        check(sw.ledger.check_conservation(), "ledger does not conserve")
+        print(f"  showcase_sequential: {out['seconds'] / out['rounds']:.3f} s/round, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({held:.2f} GiB held before it), losses {out['losses']}, slashed "
+              f"{sorted(sw.slashed)}", flush=True)
+        self.profile_rounds(sw)
+        return out
+
+    def engines_agree(self, main_out):
+        """Phase 6c: round 0 of the showcase on both engines from the same
+        init and seed.  The gradients, the draws and the wire codes are the
+        same; only the aggregation's float order differs (masked median and
+        Σ/k over the kept rows of the stack, against the dense median and
+        Σ·(1/k) over the compacted survivors).  The aggregate each engine
+        hands the optimizer is read where it is unflattened."""
+        from repro_torch.core import swarm as swarm_mod
+        from repro_torch.launch import swarm as launch
+        problem = main_out["problem"]
+        nodes, cfg = launch.showcase_roster(SHOWCASE_ROUNDS)
+        unflatten = swarm_mod.unflatten
+        aggs, outs = {}, {}
+        for engine in ("batched", "sequential"):
+            def recording(vec, layout, engine=engine):
+                aggs[engine] = vec.detach().clone()
+                return unflatten(vec, layout)
+            swarm_mod.unflatten = recording
+            try:
+                sw = launch.make_showcase_swarm(problem, nodes, cfg, engine=engine)
+                rec = sw.step(0)
+            finally:
+                swarm_mod.unflatten = unflatten
+            outs[engine] = (rec, sorted(n for op, n, _ in sw.ledger.history if op == "mint"))
+            del sw
+            self.free()
+        (rb, kb), (rs, ks) = outs["batched"], outs["sequential"]
+        check(rb["n_active"] == rs["n_active"], "n_active differs between the engines")
+        check(rb["caught"] == rs["caught"], "caught differs between the engines")
+        check(kb == ks, "the minted (kept) nodes differ between the engines")
+        a, b = aggs["batched"], aggs["sequential"]
+        rel = float((a - b).norm() / a.norm())
+        gap = abs(rb["agg_norm"] - rs["agg_norm"]) / rb["agg_norm"]
+        print(f"  batched vs sequential, round 0: n_active {rb['n_active']}, caught "
+              f"{rb['caught']}, kept {len(kb)}; aggregates {rel:.3e} relative L2 apart, "
+              f"agg_norm {rb['agg_norm']:.6f} vs {rs['agg_norm']:.6f} (gap {gap:.3e})",
+              flush=True)
+        check(rel <= 1e-5, f"the engines' aggregates differ by {rel:.3e} relative L2 (bound 1e-5)")
+
+    def profile_rounds(self, sw):
+        """Two more showcase rounds of ``sw`` timed on the host clock, then
+        one under torch.profiler: device time by kernel and the device's
+        busy share."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
-        sw = main_out["swarm"]
         times = []
         for r in (3, 4):
             t0 = time.time()
@@ -1325,7 +1485,10 @@ class Smoke:
 
     def timings(self):
         torch = self.torch
+        from repro_torch.core import compression
+        from repro_torch.kernels.centered_clip import ops as cc
         from repro_torch.kernels.masked_agg import ops as magg
+        from repro_torch.kernels.qsgd import ops as qenc
         from repro_torch.kernels.qsgd_decode import ops as qdec
         n, d = N_NODES, D_FULL
         x = self.stack(n, d, seed=11)
@@ -1354,7 +1517,24 @@ class Smoke:
         ]
         for name, kern, plain, lib, nbytes, flops in specs:
             rows.append(self.row(name, kern, plain, lib, nbytes, flops))
+        # the sequential engine's CenteredClip iteration over 10 survivors:
+        # x read once, v read and the output written; ~5 operations an element
+        rows.append(self.row("cc_iter", lambda: cc.cc_iter(x, v, clip_tau=2.0),
+                             lambda: cc.cc_iter_plain(x, v, 2.0), None,
+                             (n * d + 2 * d) * f32, 5 * n * d))
         del v
+        # the showcase wire's encode of one node: x and u read, norms read,
+        # int8 codes written; ~6 operations an element
+        nb = -(-d // 512)
+        xr = x[0]
+        u = torch.rand((nb, 512), device=self.dev)
+        norms = compression.bucket_norms(compression.pad_buckets(xr, 512)).reshape(-1)
+        rows.append(self.row(
+            "qsgd_encode",
+            lambda: qenc.qsgd_encode_kernel(xr, u, norms, levels=127, bucket_size=512),
+            lambda: qenc.qsgd_encode_plain(xr, u, norms, levels=127, bucket_size=512),
+            None, d * f32 + nb * 512 * f32 + nb * f32 + nb * 512, 6 * nb * 512))
+        del xr, u, norms
         nb = -(-d // BUCKET)
         codes = torch.randint(-LEVELS_WIRE, LEVELS_WIRE + 1, (n, nb * BUCKET),
                               dtype=torch.int8, device=self.dev)

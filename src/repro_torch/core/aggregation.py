@@ -1,17 +1,25 @@
-"""Masked Byzantine-robust aggregation (twin of the ``masked_*`` half of
-``repro/core/aggregation.py``, paper §3.3).
+"""Byzantine-robust aggregation (twin of ``repro/core/aggregation.py``,
+paper §3.3).
 
-Each aggregator takes a fixed (N, D) float32 stack and a boolean keep-mask
-(N,) and equals its dense counterpart on ``updates[mask]``, so the round
-keeps one shape across membership churn.  Under total churn
-(``mask.sum() == 0``) krum and centered_clip return zeros (a no-op step).
-These are the unfused path's aggregators; the fused path runs the kernels
-of ``kernels/masked_agg``.  At full width the stack holds ~1.6e9 values,
-so the functions walk D in column chunks where a whole-stack temporary
-would not fit (``_CHUNK`` elements at a time).
+Two families over an (N, D) float32 stack of per-node updates:
 
-Ported so far: mean, krum, centered_clip.  Median, trimmed mean and
-multi-krum wait for the campaign slice (ROADMAP queue 1, item 3).
+- the dense aggregators of the sequential engine — ``mean``,
+  ``coordinate_median``, ``trimmed_mean``, ``krum``, ``multi_krum`` and
+  ``centered_clip`` — over the compacted survivors (``AGGREGATORS``);
+- their ``masked_*`` twins, which take the fixed stack and a boolean
+  keep-mask (N,) and equal the dense aggregator on ``updates[mask]``, so
+  the batched round keeps one shape across membership churn.  Under total
+  churn (``mask.sum() == 0``) krum, multi-krum and centered_clip return
+  zeros (a no-op step).  These are the unfused round's aggregators; the
+  fused round runs the kernels of ``kernels/masked_agg``.
+
+On a CUDA stack the dense median is the ``masked_median`` kernel with an
+all-true mask, and the dense CenteredClip iterates the kernel of
+``kernels/centered_clip``.  At full width a stack holds ~1.6e9 values, so
+the functions walk D in column chunks where a whole-stack temporary would
+not fit (``_CHUNK`` elements at a time).  The reference's pytree adapter
+(``_as_matrix``) waits for the distributed layer that needs it (ROADMAP
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -19,6 +27,11 @@ import functools
 from typing import Callable, Dict, Optional, Union
 
 import torch
+
+# both kernel modules import this module back; each side reads the other's
+# names only when called
+from repro_torch.kernels.centered_clip import ops as cc_ops
+from repro_torch.kernels.masked_agg import ops as masked_agg_ops
 
 _CHUNK = 1 << 24            # elements per chunk (torch.sort / quantile size)
 
@@ -29,6 +42,84 @@ def _col_chunks(n: int, d: int):
         yield c0, min(d, c0 + step)
 
 
+# ------------------------------ dense aggregators ------------------------------
+def mean(updates: torch.Tensor) -> torch.Tensor:
+    return torch.mean(updates.float(), dim=0)
+
+
+def coordinate_median(updates: torch.Tensor) -> torch.Tensor:
+    """``jnp.median(updates, axis=0)``: each column's midpoint of its two
+    middle ranks.  On the CPU a stable sort, bit-equal to ``jnp.median``
+    (whose sort is stable and ranks +0.0 and −0.0 as equal); on CUDA the
+    ``masked_median`` kernel with an all-true mask — equal values, though a
+    tie of +0.0 and −0.0 may give the other zero (ROADMAP queue 3)."""
+    x = updates.float()
+    n, d = x.shape
+    if x.is_cuda:
+        return masked_agg_ops.masked_median(
+            x, torch.ones(n, dtype=torch.bool, device=x.device))
+    out = torch.empty(d, dtype=torch.float32)
+    for c0, c1 in _col_chunks(n, d):
+        s = torch.sort(x[:, c0:c1], dim=0, stable=True).values
+        out[c0:c1] = (s[(n - 1) // 2] + s[n // 2]) * 0.5
+    return out
+
+
+def trimmed_mean(updates: torch.Tensor, *, trim: int = 1) -> torch.Tensor:
+    n, d = updates.shape
+    trim = min(trim, (n - 1) // 2)
+    out = torch.empty(d, dtype=torch.float32, device=updates.device)
+    for c0, c1 in _col_chunks(n, d):
+        s = torch.sort(updates[:, c0:c1].float(), dim=0).values
+        out[c0:c1] = torch.mean(s[trim:n - trim], dim=0)
+    return out
+
+
+def _krum_scores(updates: torch.Tensor, f: int) -> torch.Tensor:
+    """Each row's sum of squared distances to its n − f − 2 (at least 1)
+    nearest other rows, nearest first."""
+    n = updates.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=updates.device)
+    d2 = torch.where(eye, torch.full((), float("inf"), device=updates.device),
+                     _pairwise_d2(updates))
+    k = max(n - int(f) - 2, 1)
+    return torch.sum(torch.sort(d2, dim=-1).values[:, :k], dim=-1)
+
+
+def krum(updates: torch.Tensor, *, f: int = 1) -> torch.Tensor:
+    return updates[torch.argmin(_krum_scores(updates, f))].float()
+
+
+def _rows_mean(updates: torch.Tensor, rows: torch.Tensor,
+               count: float) -> torch.Tensor:
+    """Σ over ``rows`` (in that order) of the update rows, / ``count``."""
+    n, d = updates.shape
+    div = torch.full((), count, device=updates.device)
+    out = torch.empty(d, dtype=torch.float32, device=updates.device)
+    for c0, c1 in _col_chunks(n, d):
+        out[c0:c1] = torch.sum(updates[rows, c0:c1].float(), dim=0) / div
+    return out
+
+
+def multi_krum(updates: torch.Tensor, *, f: int = 1, m: int = 0) -> torch.Tensor:
+    """The mean of the m best-scored rows; ``m`` clamped to the stack
+    height, as the reference clamps it."""
+    n = updates.shape[0]
+    m = min(m or max(n - int(f) - 2, 1), n)
+    best = torch.argsort(_krum_scores(updates, f), stable=True)[:m]
+    return _rows_mean(updates, best, float(m))
+
+
+def centered_clip(updates: torch.Tensor, *, clip_tau: Optional[float] = None,
+                  iters: int = 3, v0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CenteredClip [40]: v ← v + mean_i clip(x_i − v, τ), ``iters`` times,
+    from the coordinate median (or ``v0``).  ``clip_tau=None`` adapts τ
+    each iteration to the median node distance ‖x_i − v‖.  The iterations
+    are ``kernels/centered_clip``'s (the kernel on CUDA)."""
+    return cc_ops.centered_clip(updates, clip_tau=clip_tau, iters=iters, v0=v0)
+
+
+# ------------------------------- masked twins ----------------------------------
 def _masked_median(updates: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked coordinate median with nanmedian's interpolation —
     ``jnp.nanquantile(where(mask, x, nan), 0.5, method="midpoint")``: sort
@@ -115,8 +206,10 @@ def masked_centered_clip(updates: torch.Tensor, mask: torch.Tensor, *,
             diff = updates[:, c0:c1].float() - v[None, c0:c1]
             sq += torch.sum(diff * diff, dim=1)
         norm = torch.sqrt(sq)
+        # a tensor τ: a Python float over a tensor is reciprocal-then-
+        # multiply in torch, two roundings where the reference has one
         tau = (_masked_median(norm[:, None], mask)[0] if clip_tau is None
-               else clip_tau)
+               else torch.full((), float(clip_tau), device=norm.device))
         scale = torch.minimum(torch.ones((), device=norm.device),
                               tau / torch.clamp(norm, min=1e-12))
         w = (scale * mf)[:, None]
@@ -128,17 +221,75 @@ def masked_centered_clip(updates: torch.Tensor, mask: torch.Tensor, *,
     return torch.where(torch.any(mask), v, torch.zeros_like(v))
 
 
+def masked_coordinate_median(updates: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return _masked_median(updates, mask)
+
+
+def masked_trimmed_mean(updates: torch.Tensor, mask: torch.Tensor, *,
+                        trim: int = 1) -> torch.Tensor:
+    """The mean of each column's kept values of rank t..k−t−1, t =
+    min(trim, (k − 1) // 2): masked rows sort last at +inf (all masked: t =
+    −1 keeps rank 0, +inf, as the reference does)."""
+    n, d = updates.shape
+    m = mask.bool()
+    k = int(torch.sum(m))
+    t = min(int(trim), (k - 1) // 2)
+    ranks = torch.arange(n, device=updates.device)[:, None]
+    keep = (ranks >= t) & (ranks < k - t)
+    div = torch.full((), float(max(k - 2 * t, 1)), device=updates.device)
+    inf = torch.full((), float("inf"), device=updates.device)
+    out = torch.empty(d, dtype=torch.float32, device=updates.device)
+    for c0, c1 in _col_chunks(n, d):
+        s = torch.sort(torch.where(m[:, None], updates[:, c0:c1].float(), inf),
+                       dim=0).values
+        out[c0:c1] = torch.sum(torch.where(keep, s, 0.0), dim=0) / div
+    return out
+
+
+def masked_multi_krum(updates: torch.Tensor, mask: torch.Tensor, *,
+                      f: Union[int, torch.Tensor] = 1,
+                      m: Union[int, torch.Tensor, None] = 0) -> torch.Tensor:
+    """The mean of the m best-scored kept rows.  ``m`` 0 or None means
+    max(k − f − 2, 1); any other m is clamped to [1, k], so masked rows
+    (real corrupted or stale updates) are never averaged in."""
+    k_act = int(torch.sum(mask.bool()))
+    auto = m is None or (not isinstance(m, torch.Tensor) and m == 0)
+    m_eff = max(k_act - int(f) - 2, 1) if auto else min(max(int(m), 1), k_act)
+    scores = _krum_scores_from_d2(_pairwise_d2(updates), mask, f)
+    best = torch.argsort(scores, stable=True)[:m_eff]
+    out = _rows_mean(updates, best, float(m_eff))
+    return torch.where(torch.any(mask), out, torch.zeros_like(out))
+
+
 MASKED_AGGREGATORS: Dict[str, Callable] = {
     "mean": masked_mean,
+    "median": masked_coordinate_median,
+    "trimmed_mean": masked_trimmed_mean,
     "krum": masked_krum,
+    "multi_krum": masked_multi_krum,
     "centered_clip": masked_centered_clip,
 }
 
 
 def get_masked_aggregator(name: str, **defaults) -> Callable:
-    """``fn(updates, mask)`` for a ported masked aggregator (KeyError for
-    the ones that wait for a later slice)."""
+    """Masked twin of :func:`get_aggregator`: ``fn(updates, mask)``."""
     fn = MASKED_AGGREGATORS[name]
+    return functools.partial(fn, **defaults) if defaults else fn
+
+
+AGGREGATORS: Dict[str, Callable] = {
+    "mean": mean,
+    "median": coordinate_median,
+    "trimmed_mean": trimmed_mean,
+    "krum": krum,
+    "multi_krum": multi_krum,
+    "centered_clip": centered_clip,
+}
+
+
+def get_aggregator(name: str, **defaults) -> Callable:
+    """``fn(updates)`` over the (k, D) stack of the kept updates."""
+    fn = AGGREGATORS[name]
     return functools.partial(fn, **defaults) if defaults else fn
 
 

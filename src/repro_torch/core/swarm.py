@@ -6,7 +6,8 @@ N protocol participants train one model.  Each round, in order:
 1. per-node gradients, written as flat float32 rows of one (N, D) stack in
    the reference's flat order (``models.convert``);
 2. corruption of the Byzantine rows (``_corrupt_all``);
-3. the wire: QSGD payloads (fused round) or the decoded round trip;
+3. the wire: QSGD payloads (fused round) or the decoded round trip of
+   ``compression.roundtrip`` (qsgd, top-k, PowerSGD);
 4. stake/slash audits of a random subset (``verification.audit_flat``);
 5. masked robust aggregation over ``keep = active & ~caught`` — the
    kernels of ``kernels/masked_agg`` and ``kernels/qsgd_decode`` when the
@@ -15,17 +16,21 @@ N protocol participants train one model.  Each round, in order:
 
 The round is a function ``round_fn(lane, state, rnd, batches, draws=None)
 -> (state, RoundRecord)`` built by :func:`make_round_fn`, as in the
-reference; :class:`Swarm` steps it and keeps the ledger.  Every draw comes
-from the ``(seed, purpose, round, node)`` schedule of ``repro_torch.random``
-or, when ``draws`` is given, from the caller (the tests pass the
-reference's draws and compare rounds exactly).  The wire uniforms of a node
-are drawn once and used twice: for its submitted payload and for the
-auditor's recomputation, so honest nodes pass their audits.
+reference; :class:`Swarm` steps it and keeps the ledger.
+:class:`SequentialSwarm` is the readable per-node twin of the same round:
+it loops over the active nodes, aggregates the compacted survivors with
+the dense ``core.aggregation`` aggregators, and is held against
+:class:`Swarm`.  Every draw comes from the ``(seed, purpose, round, node)``
+schedule of ``repro_torch.random``, the same in both engines, or, when
+``draws`` is given, from the caller (the tests pass the reference's draws
+and compare rounds exactly).  The wire draw of a node is drawn once per use
+from its node generator, so its payload and the auditor's recomputation
+see the same numbers and honest nodes pass their audits.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 queue 1 item): multi-aggregator routing, ``scan_rounds`` / ``run_campaign``
-(3), ``SequentialSwarm`` (5), custody lanes (7), decentralized topologies
-(8), bounded staleness (9) and the economy lane (10).
+(3), custody lanes (7), decentralized topologies (8), bounded staleness (9)
+and the economy lane (10).
 """
 from __future__ import annotations
 
@@ -79,7 +84,7 @@ class SwarmConfig:
     aggregator: str = "centered_clip"
     agg_kwargs: Dict = field(default_factory=dict)
     verification: Optional[VerificationConfig] = None
-    compression: Optional[str] = None    # None|"qsgd"
+    compression: Optional[str] = None    # None|"qsgd"|"topk"|"powersgd"
     compression_kwargs: Dict = field(default_factory=dict)
     seed: int = 0
     # the fields below mirror the reference's; non-default values wait for
@@ -211,6 +216,15 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
     )
 
 
+def _wire_draw(rr: RoundRandom, draw: Optional[tuple], node: int) -> Optional[torch.Tensor]:
+    """Node ``node``'s wire draw for ``compression.wire_draw``'s ``draw``:
+    uniforms, normals, or None for a wire that takes none."""
+    if draw is None:
+        return None
+    kind, shape = draw
+    return rr.wire(node, shape) if kind == "uniform" else rr.wire_normal(node, shape)
+
+
 def _node_gradient(loss_fn: Callable, params: Dict[str, torch.Tensor], batch):
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     loss = loss_fn(leaves, batch)
@@ -241,8 +255,8 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         raise NotImplementedError("multi-aggregator routing waits for the "
                                   "campaign slice (ROADMAP queue 1, item 3)")
     if compression_kind not in compression.WIRE_CODECS:
-        raise NotImplementedError(f"the {compression_kind!r} wire waits for "
-                                  "its slice (ROADMAP queue 1, item 6)")
+        raise ValueError(f"unknown wire codec: {compression_kind!r} "
+                         f"(known: {compression.WIRE_CODECS})")
     agg_kwargs = dict(agg_kwargs or {})
     ckw = dict(compression_kwargs or {})
     layout = layout_of(params_template)
@@ -250,7 +264,7 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     stack_bytes = n_nodes * d_total * 4
     fusable_agg = aggregator in masked_agg_ops.FUSED_MASKED_AGGREGATORS
     fusable_wire = (compression_kind is None
-                    or ckw.get("levels", 16) <= 127)
+                    or (compression_kind == "qsgd" and ckw.get("levels", 16) <= 127))
     fused_ok = fusable_agg and fusable_wire
     if fused is None:
         on_card = next(iter(params_template.values())).is_cuda
@@ -266,9 +280,7 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     getter = (masked_agg_ops.get_fused_aggregator if fused
               else aggregation.get_masked_aggregator)
     agg_fn = getter(aggregator, **agg_kwargs)
-    if compression_kind == "qsgd":
-        bucket = ckw.get("bucket_size", 1024)
-        wire_shape = (-(-d_total // bucket), bucket)
+    draw = compression.wire_draw(compression_kind, d_total, **ckw)
 
     def round_fn(lane: LaneParams, state: SwarmState, rnd: int, batches,
                  draws: Optional[RoundDraws] = None):
@@ -307,22 +319,24 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         audited_host = audited.tolist()
         passes = torch.ones(n, dtype=torch.bool, device=dev)
         if fused_qsgd:
+            wire_shape = draw[1]
             pay_codes = torch.empty((n, *wire_shape), dtype=torch.int8, device=dev)
             pay_norms = torch.empty((n, wire_shape[0], 1), dtype=torch.float32,
                                     device=dev)
-        elif compression_kind == "qsgd":
+        elif compression_kind is not None:
             submitted = torch.empty((n, d_total), dtype=torch.float32, device=dev)
         else:
             submitted = corrupted
         for i in range(n):
-            u = rr.wire(i, wire_shape) if compression_kind == "qsgd" else None
+            u = _wire_draw(rr, draw, i)
             if fused_qsgd:
                 pay = qsgd_decode_ops.wire_encode(corrupted[i], u, **ckw)
                 pay_codes[i], pay_norms[i] = pay.codes, pay.norms
                 claimed = qsgd_decode_ops.wire_decode(pay) if audited_host[i] else None
             else:
-                if compression_kind == "qsgd":
-                    submitted[i] = compression.roundtrip("qsgd", u, corrupted[i], **ckw)
+                if compression_kind is not None:
+                    submitted[i] = compression.roundtrip(compression_kind, u,
+                                                         corrupted[i], **ckw)
                 claimed = submitted[i]
             if audited_host[i]:
                 recomputed = compression.roundtrip(compression_kind, u, gf[i], **ckw)
@@ -381,15 +395,12 @@ def history_from_records(recs: Sequence[RoundRecord], node_ids: Sequence[str], *
     } for t, r in enumerate(recs)]
 
 
-# ================================ engine =======================================
-class Swarm:
-    """The batched engine: a thin wrapper that steps the round of
-    :func:`make_round_fn` and keeps the host ledger.
+# ================================ engines ======================================
+class _SwarmBase:
+    """State, ledger plumbing and the run() loop shared by both engines.
 
     ``loss_fn(params, batch) -> scalar``; ``data_fn(node_idx, rnd) ->
-    batch``.  The round runs on the device of ``params``.  Inactive nodes
-    still occupy a row of the stack (their gradient is computed and then
-    masked), as in the reference.
+    batch``.  A round runs on the device of ``params``.
     """
 
     def __init__(self, loss_fn: Callable, params, optimizer,
@@ -405,8 +416,48 @@ class Swarm:
         self.ledger = Ledger()
         self.slashed: Set[str] = set()
         self.history: List[dict] = []
-        n = len(self.nodes)
         self.device = next(iter(params.values())).device
+        if cfg.verification:
+            for node in self.nodes:
+                self.ledger.stake(node.node_id, cfg.verification.stake)
+
+    def step(self, rnd: int, draws: Optional[RoundDraws] = None) -> dict:
+        raise NotImplementedError
+
+    def _slash(self, node: NodeSpec) -> None:
+        self.ledger.slash(node.node_id)
+        self.ledger.pay_jackpot("validator", self.cfg.verification.jackpot)
+        self.slashed.add(node.node_id)
+
+    def eval_params(self):
+        return self.params
+
+    def run(self, rounds: int, eval_fn: Optional[Callable] = None,
+            eval_every: int = 10) -> List[float]:
+        """Step rounds 0..rounds-1; ``eval_fn(params)`` every ``eval_every``
+        rounds and after the last.  (The scanned run waits for the campaign
+        slice.)"""
+        losses = []
+        for r in range(rounds):
+            rec = self.step(r)
+            if eval_fn and (r % eval_every == 0 or r == rounds - 1):
+                rec["eval_loss"] = float(eval_fn(self.eval_params()))
+                losses.append(rec["eval_loss"])
+        return losses
+
+
+class Swarm(_SwarmBase):
+    """The batched engine: a thin wrapper that steps the round of
+    :func:`make_round_fn` and keeps the host ledger.  Inactive nodes still
+    occupy a row of the stack (their gradient is computed and then masked),
+    as in the reference.
+    """
+
+    def __init__(self, loss_fn: Callable, params, optimizer,
+                 nodes: List[NodeSpec], cfg: SwarmConfig,
+                 data_fn: Callable[[int, int], dict]):
+        super().__init__(loss_fn, params, optimizer, nodes, cfg, data_fn)
+        n = len(self.nodes)
         self._lane = lane_for_nodes(self.nodes, cfg, self.device)
         self._joins_np = np.asarray([s.join_round for s in self.nodes], np.int64)
         self._leaves_np = np.asarray(
@@ -419,9 +470,6 @@ class Swarm:
             compression_kind=cfg.compression,
             compression_kwargs=cfg.compression_kwargs,
             verify=cfg.verification is not None, fused=cfg.fused)
-        if cfg.verification:
-            for node in self.nodes:
-                self.ledger.stake(node.node_id, cfg.verification.stake)
 
     @property
     def fused(self) -> bool:
@@ -433,11 +481,6 @@ class Swarm:
             slashed=torch.as_tensor(self._slashed_np, device=self.device),
             contrib=torch.zeros(len(self.nodes), dtype=torch.float32,
                                 device=self.device))
-
-    def _slash(self, node: NodeSpec) -> None:
-        self.ledger.slash(node.node_id)
-        self.ledger.pay_jackpot("validator", self.cfg.verification.jackpot)
-        self.slashed.add(node.node_id)
 
     def step(self, rnd: int, draws: Optional[RoundDraws] = None) -> dict:
         active_np = ((self._joins_np <= rnd) & (rnd < self._leaves_np)
@@ -458,30 +501,123 @@ class Swarm:
         self.history.append(row)
         return row
 
-    def eval_params(self):
-        return self.params
 
-    def run(self, rounds: int, eval_fn: Optional[Callable] = None,
-            eval_every: int = 10) -> List[float]:
-        """Step rounds 0..rounds-1; ``eval_fn(params)`` every ``eval_every``
-        rounds and after the last.  (The scanned run waits for the campaign
-        slice.)"""
-        losses = []
-        for r in range(rounds):
-            rec = self.step(r)
-            if eval_fn and (r % eval_every == 0 or r == rounds - 1):
-                rec["eval_loss"] = float(eval_fn(self.eval_params()))
-                losses.append(rec["eval_loss"])
-        return losses
+class SequentialSwarm(_SwarmBase):
+    """The per-node engine: the readable twin of the reference's
+    ``SequentialSwarm``, held against :class:`Swarm`.
+
+    Each round loops over the active nodes only: a flat float32 gradient
+    each (the reference's flat order), corruption with the honest mean of
+    the active nodes, the wire (``compression.roundtrip``, decoded), audits
+    that recompute the gradient and re-encode it with the submitter's wire
+    draw, then the dense aggregator of ``core.aggregation`` over the
+    compacted (k, D) stack of the survivors.  The draws are the batched
+    engine's: the same ``(seed, purpose, round, node)`` generators, or the
+    caller's ``draws``.  Bounded staleness and the other axes that
+    ``SwarmConfig`` refuses wait for their items there.
+    """
+
+    def __init__(self, loss_fn: Callable, params, optimizer,
+                 nodes: List[NodeSpec], cfg: SwarmConfig,
+                 data_fn: Callable[[int, int], dict]):
+        super().__init__(loss_fn, params, optimizer, nodes, cfg, data_fn)
+        if cfg.compression not in compression.WIRE_CODECS:
+            raise ValueError(f"unknown wire codec: {cfg.compression!r} "
+                             f"(known: {compression.WIRE_CODECS})")
+        self._layout = layout_of(params)
+        self._d = flat_size(self._layout)
+        self._draw = compression.wire_draw(cfg.compression, self._d,
+                                           **cfg.compression_kwargs)
+        self._aggregate = aggregation.get_aggregator(cfg.aggregator, **cfg.agg_kwargs)
+
+    def _gradient(self, batch) -> torch.Tensor:
+        g = torch.empty(self._d, dtype=torch.float32, device=self.device)
+        flatten_into(g, _node_gradient(self.loss_fn, self.params, batch))
+        return g
+
+    def _wire(self, g: torch.Tensor, rr: RoundRandom, node: int) -> torch.Tensor:
+        return compression.roundtrip(self.cfg.compression, _wire_draw(rr, self._draw, node),
+                                     g, **self.cfg.compression_kwargs)
+
+    def step(self, rnd: int, draws: Optional[RoundDraws] = None) -> dict:
+        cfg, dev = self.cfg, self.device
+        active = [(i, n) for i, n in enumerate(self.nodes)
+                  if n.active(rnd) and n.node_id not in self.slashed]
+        if not active:
+            raise RuntimeError(f"round {rnd}: no active nodes")
+        rr = RoundRandom(cfg.seed, rnd, dev, draws)
+        batches = [self.data_fn(i, rnd) for i, _ in active]
+        grads = [self._gradient(b) for b in batches]
+
+        # corruption and the wire; the honest mean is the batched engine's
+        # masked sum, added in node order, over the active count
+        honest_mean = None
+        if any(n.byzantine == "inner_product" for _, n in active):
+            acc = torch.zeros(self._d, dtype=torch.float32, device=dev)
+            for g in grads:
+                acc = acc + g
+            honest_mean = acc / torch.full((), float(len(active)), device=dev)
+        submitted = []
+        for (i, node), g in zip(active, grads):
+            if node.byzantine:
+                scale = torch.tensor(node.byzantine_scale, dtype=torch.float32, device=dev)
+                noise = rr.corrupt(i, self._d) if node.byzantine == "noise" else None
+                g = corrupt(node.byzantine, g, honest_mean, scale, noise)
+            submitted.append(self._wire(g, rr, i))
+        del grads, honest_mean
+
+        # stake/slash audits (§4.2): recompute, re-encode with the
+        # submitter's wire draw, compare with audit_flat
+        caught, keep = [], [True] * len(active)
+        if cfg.verification:
+            v = cfg.verification
+            for j, (i, node) in enumerate(active):
+                if not bool(rr.audit_sel(i) < v.p_check):
+                    continue
+                recomputed = self._wire(self._gradient(batches[j]), rr, i)
+                ok, _ = audit_flat(submitted[j], recomputed, rr.audit_noise(i, self._d), v)
+                if not bool(ok):
+                    self._slash(node)
+                    caught.append(node.node_id)
+                    keep[j] = False
+
+        # aggregation of the compacted survivors, the optimizer update
+        kept = [x for x, k in zip(submitted, keep) if k]
+        del submitted
+        if kept:
+            survivors = torch.stack(kept)
+            del kept
+            agg = self._aggregate(survivors)
+            del survivors
+            self.params, self.opt_state = self.optimizer.update(
+                unflatten(agg, self._layout), self.opt_state, self.params)
+        else:
+            agg = torch.zeros(self._d, dtype=torch.float32, device=dev)
+
+        # mint shares in proportion to verified work (speed-weighted) (§4)
+        for (_, node), k in zip(active, keep):
+            if k:
+                self.ledger.record_contribution(node.node_id, node.speed)
+        rec = {
+            "round": rnd,
+            "n_active": len(active),
+            "n_byzantine": sum(1 for _, n in active if n.byzantine),
+            "caught": caught,
+            "agg_norm": float(torch.linalg.vector_norm(agg)),
+            "consensus_error": 0.0,
+            "coverage": 1.0,
+            "staleness": 0.0,
+        }
+        self.history.append(rec)
+        return rec
+
+
+ENGINES = {"batched": Swarm, "sequential": SequentialSwarm}
 
 
 def make_swarm(loss_fn, params, optimizer, nodes: List[NodeSpec], cfg: SwarmConfig,
-               data_fn, *, engine: str = "batched") -> Swarm:
-    """Build a swarm with the requested engine (only "batched" so far)."""
-    if engine == "sequential":
-        raise NotImplementedError("SequentialSwarm waits for its slice "
-                                  "(ROADMAP queue 1, item 5)")
-    if engine != "batched":
-        raise ValueError(f"unknown engine: {engine!r} (known: ['batched', "
-                         "'sequential'])")
-    return Swarm(loss_fn, params, optimizer, nodes, cfg, data_fn)
+               data_fn, *, engine: str = "batched") -> _SwarmBase:
+    """Build a swarm with the requested engine (``ENGINES``)."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine: {engine!r} (known: {sorted(ENGINES)})")
+    return ENGINES[engine](loss_fn, params, optimizer, nodes, cfg, data_fn)

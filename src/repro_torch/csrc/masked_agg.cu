@@ -49,58 +49,20 @@
 //   No tensor cores and no TF32.
 //
 // N <= 64 for every kernel (NP in {2, ..., 64}); the Python wrapper raises
-// above.  Each entry point returns cudaGetLastError().
+// above.  Each entry point returns cudaGetLastError().  The sorting network,
+// the partial norms and the clip scale are shared with centered_clip.cu
+// (agg_common.cuh).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "agg_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxN = 64;
 constexpr int kTile = 128;
 constexpr int kMaxPairsPerThread = (kMaxN * (kMaxN + 1) / 2 + kThreads - 1) / kThreads;
-
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
-
-// Batcher's odd-even merge sort, ascending, NP a power of two.
-template <int NP>
-__device__ __forceinline__ void oddeven_sort(float (&v)[NP]) {
-#pragma unroll
-  for (int p = 1; p < NP; p <<= 1) {
-#pragma unroll
-    for (int k = p; k >= 1; k >>= 1) {
-#pragma unroll
-      for (int j = k % p; j < NP - k; j += 2 * k) {
-#pragma unroll
-        for (int i = 0; i < k; ++i) {
-          if (i < NP - j - k && (i + j) / (2 * p) == (i + j + k) / (2 * p)) {
-            const float a = v[i + j], b = v[i + j + k];
-            const bool s = b < a;
-            v[i + j] = s ? b : a;
-            v[i + j + k] = s ? a : b;
-          }
-        }
-      }
-    }
-  }
-}
-
-// (v[lo] + v[hi]) * 0.5 of the two middle ranks of the first k sorted
-// values; k = 0 selects no low rank and gives NaN.
-template <int NP>
-__device__ __forceinline__ float rank_mid(const float (&v)[NP], int k) {
-  const int lo_idx = k >= 1 ? (k - 1) / 2 : -1;
-  const int hi_idx = k / 2;
-  float lo = qnan(), hi = qnan();
-#pragma unroll
-  for (int r = 0; r < NP; ++r) {
-    lo = (r == lo_idx) ? v[r] : lo;
-    hi = (r == hi_idx) ? v[r] : hi;
-  }
-  return (lo + hi) * 0.5f;
-}
 
 template <int NP>
 __global__ void __launch_bounds__(kThreads)
@@ -122,55 +84,11 @@ median_kernel(const float* __restrict__ x, const float* __restrict__ mask,
 
 template <int NP>
 __global__ void __launch_bounds__(kThreads)
-cc_sqnorm_partial(const float* __restrict__ x, const float* __restrict__ v,
-                  float* __restrict__ partial, int n, long long d, long long chunk) {
-  float acc[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) acc[i] = 0.f;
-  const long long start = (long long)blockIdx.x * chunk;
-  const long long end = min(d, start + chunk);
-  for (long long c = start + threadIdx.x; c < end; c += blockDim.x) {
-    const float vc = v[c];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      if (i < n) {
-        const float df = x[(long long)i * d + c] - vc;
-        acc[i] = fmaf(df, df, acc[i]);
-      }
-    }
-  }
-  __shared__ float red[kThreads / 32][NP];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    float s = acc[i];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp][i] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x < n) {
-    float s = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w][threadIdx.x];
-    partial[(long long)threadIdx.x * gridDim.x + blockIdx.x] = s;
-  }
-}
-
-template <int NP>
-__global__ void __launch_bounds__(kThreads)
 cc_finalize(const float* __restrict__ partial, int nblk, const float* __restrict__ mask,
             int n, float tau_fixed, int adaptive, float* __restrict__ w_out,
             float* __restrict__ k_out) {
   __shared__ float sq[NP];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < n; i += kThreads / 32) {
-    float s = 0.f;
-    for (int b = lane; b < nblk; b += 32) s += partial[(long long)i * nblk + b];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) sq[i] = s;
-  }
-  __syncthreads();
+  sum_partials<NP>(partial, nblk, n, sq);
   if (threadIdx.x != 0) return;
   float nrm[NP], m[NP];
   int kept = 0;
@@ -194,12 +112,7 @@ cc_finalize(const float* __restrict__ partial, int nblk, const float* __restrict
   }
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
-    if (i < n) {
-      const float den = isnan(nrm[i]) ? nrm[i] : fmaxf(nrm[i], 1e-12f);
-      const float r = __fdiv_rn(tau, den);
-      const float sc = isnan(r) ? r : fminf(1.f, r);
-      w_out[i] = __fmul_rn(sc, m[i]);
-    }
+    if (i < n) w_out[i] = __fmul_rn(clip_scale(tau, nrm[i]), m[i]);
   }
   k_out[0] = ksum < 1.f ? 1.f : ksum;
 }
@@ -292,20 +205,6 @@ krum_d2_finalize(const float* __restrict__ partial, int nblk, int n, float* __re
     const float gij = i <= j ? g[at(i, j)] : g[at(j, i)];
     d2[e] = __fsub_rn(__fadd_rn(g[at(i, i)], g[at(j, j)]), __fmul_rn(2.f, gij));
   }
-}
-
-inline unsigned blocks_for(long long work, int per_block) {
-  return (unsigned)((work + per_block - 1) / per_block);
-}
-
-template <template <int> class Launch, typename... Args>
-cudaError_t dispatch_np(int n, Args... args) {
-  if (n <= 2) return Launch<2>::run(args...);
-  if (n <= 4) return Launch<4>::run(args...);
-  if (n <= 8) return Launch<8>::run(args...);
-  if (n <= 16) return Launch<16>::run(args...);
-  if (n <= 32) return Launch<32>::run(args...);
-  return Launch<64>::run(args...);
 }
 
 template <int NP>

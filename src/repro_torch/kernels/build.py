@@ -22,9 +22,13 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = {"masked_agg": "masked_agg.cu", "qsgd_decode": "qsgd_decode.cu",
            "swa_attention": "swa_attention.cu", "rwkv6_wkv": "rwkv6_wkv.cu",
-           "mamba2_ssd": "mamba2_ssd.cu"}
+           "mamba2_ssd": "mamba2_ssd.cu", "qsgd_encode": "qsgd_encode.cu",
+           "centered_clip": "centered_clip.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of one source beyond NVCC_FLAGS: the QSGD codes must equal the
+#: plain version's bit for bit, so no multiply may be contracted with an add
+EXTRA_FLAGS = {"qsgd_encode": ("-fmad=false",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -40,9 +44,16 @@ def nvcc_path() -> str:
     return found
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
+    """The library's path, tagged with a hash of its source, the headers
+    of ``csrc/`` (which any source may include) and its flags."""
     src = (CSRC / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
@@ -60,7 +71,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *flags(name), "-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -6,6 +6,9 @@ same bucketing, same norms, same stochastic-rounding draws — but stores the
 code as one **signed int8** per element (sign folded into the magnitude)
 instead of the reference's int32 + bool pair, so the payload a fused round
 keeps live between compress and aggregate is ~4.5 bytes/element smaller.
+Its codes come from ``kernels.qsgd.ops.qsgd_encode_buckets``: the encode
+kernel on a CUDA tensor (reading x unpadded), its plain version on a CPU
+one.
 ``wire_decode(wire_encode(x, u))`` equals ``compression.roundtrip("qsgd",
 u, x)`` except that true-sign zero codes decode to +0.0 rather than −0.0
 (numerically equal; every arithmetic consumer is unaffected).
@@ -23,9 +26,9 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.compression import (bits_per_element, bucket_norms,
-                                          pad_buckets, quantize)
+from repro_torch.core.compression import bits_per_element, bucket_norms, pad_buckets
 from repro_torch.kernels import build
+from repro_torch.kernels.qsgd import ops as qsgd_ops
 
 #: launches of the decode-accumulate kernel (one per wrapper call on CUDA)
 LAUNCHES = {"qsgd_decode_accumulate": 0}
@@ -56,10 +59,9 @@ def wire_encode(x: torch.Tensor, u: torch.Tensor, *, levels: int = 16,
     a signed byte."""
     if levels > 127:
         raise ValueError(f"int8 wire codes need levels <= 127, got {levels}")
-    padded = pad_buckets(x, bucket_size)
-    norms = bucket_norms(padded)
-    q, sign = quantize(padded, norms, u, levels)
-    codes = torch.where(sign, -q, q).to(torch.int8)
+    norms = bucket_norms(pad_buckets(x, bucket_size))
+    codes = qsgd_ops.qsgd_encode_buckets(x.reshape(-1).float(), u.reshape(-1, bucket_size),
+                                         norms, levels=levels, bucket_size=bucket_size)
     return QsgdPayload(codes, norms, levels=levels, size=x.numel(),
                        bucket_size=bucket_size)
 

@@ -4,6 +4,7 @@ twin of ``examples/swarm_byzantine_training.py``.
     python -m repro_torch.launch.swarm                 # reduced width, on the card
     python -m repro_torch.launch.swarm --full          # 162,417,408 params
     python -m repro_torch.launch.swarm --device cpu --rounds 3
+    python -m repro_torch.launch.swarm --full --engine sequential   # per-node engine
 
 The "showcase" roster exercises the five §3 properties and the §4
 incentives at once: 10 heterogeneous nodes (speeds 0.5-3x, two join late,
@@ -11,7 +12,9 @@ one leaves), two Byzantine nodes (inner-product and sign-flip attacks),
 a QSGD wire (127 levels, buckets of 512), CenteredClip aggregation
 (τ = 2.0, 3 iterations) and stake/slash audits (p = 0.25), trained with
 AdamW at lr 5e-3 on sequences of 128 tokens, a global batch of 2N.  It
-prints the reference's columns and ledger report.  The reference ends with
+prints the reference's columns and ledger report.  ``--engine`` picks the
+batched round (``Swarm``, the default) or the per-node ``SequentialSwarm``,
+as the reference example's ``--engine`` does.  The reference ends with
 a custody-sharded checkpoint; that waits for the custody slice (ROADMAP
 queue 1, item 7) and is skipped here.
 """
@@ -25,7 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs import ModelConfig, get_config
-from repro_torch.core.swarm import NodeSpec, Swarm, SwarmConfig, make_swarm
+from repro_torch.core.swarm import ENGINES, NodeSpec, SwarmConfig, make_swarm
 from repro_torch.core.verification import VerificationConfig
 from repro_torch.data.pipeline import DataConfig, data_fn_for_swarm, model_batch
 from repro_torch.device import DeviceLike, resolve_device
@@ -100,13 +103,13 @@ def build_problem(full: bool, device: DeviceLike = None, seed: int = 0) -> Probl
 
 
 def make_showcase_swarm(problem: Problem, nodes: Sequence[NodeSpec],
-                        cfg: SwarmConfig, lr: float = 5e-3) -> Swarm:
+                        cfg: SwarmConfig, lr: float = 5e-3, engine: str = "batched"):
     params = {k: v.clone() for k, v in problem.params.items()}
     return make_swarm(problem.loss_fn, params, AdamW(lr=lr), list(nodes), cfg,
-                      problem.data_fn(len(nodes)))
+                      problem.data_fn(len(nodes)), engine=engine)
 
 
-def train(swarm: Swarm, problem: Problem, rounds: int, *, print_every: int = 20,
+def train(swarm, problem: Problem, rounds: int, *, print_every: int = 20,
           out: Callable[[str], None] = print) -> List[float]:
     """Step ``rounds`` rounds, printing the reference's columns; returns the
     eval losses printed."""
@@ -123,7 +126,7 @@ def train(swarm: Swarm, problem: Problem, rounds: int, *, print_every: int = 20,
     return losses
 
 
-def report_ledger(swarm: Swarm, out: Callable[[str], None] = print) -> None:
+def report_ledger(swarm, out: Callable[[str], None] = print) -> None:
     out("\nfractional ownership (ledger):")
     for node, bal in sorted(swarm.ledger.balances.items(), key=lambda kv: -kv[1]):
         out(f"  {node:10s} {bal:8.1f} shares "
@@ -142,21 +145,24 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises when CUDA is missing)")
     ap.add_argument("--seed", type=int, default=0, help="weight-init seed")
+    ap.add_argument("--engine", default="batched", choices=sorted(ENGINES),
+                    help="batched round (default) or the per-node sequential engine")
     args = ap.parse_args(argv)
 
     problem = build_problem(args.full, args.device, args.seed)
     print(f"model: {problem.cfg.name} N={problem.cfg.param_count():,} "
           f"({'full' if args.full else 'reduced'}) on {problem.device}")
     nodes, cfg = showcase_roster(args.rounds)
-    print(f"scenario: showcase ({len(nodes)} nodes, engine=batched)")
-    swarm = make_showcase_swarm(problem, nodes, cfg)
+    print(f"scenario: showcase ({len(nodes)} nodes, engine={args.engine})")
+    swarm = make_showcase_swarm(problem, nodes, cfg, engine=args.engine)
     t0 = time.time()
     losses = train(swarm, problem, args.rounds)
     if problem.device.type == "cuda":
         torch.cuda.synchronize(problem.device)
     dt = time.time() - t0
+    fused = f", fused={swarm.fused}" if args.engine == "batched" else ""
     print(f"\ntrained {args.rounds} rounds in {dt:.0f}s "
-          f"({args.rounds / max(dt, 1e-9):.2f} rounds/s, fused={swarm.fused})")
+          f"({args.rounds / max(dt, 1e-9):.2f} rounds/s{fused})")
     report_ledger(swarm)
     return {"swarm": swarm, "problem": problem, "losses": losses,
             "seconds": dt, "rounds": args.rounds, "nodes": nodes}

@@ -58,6 +58,8 @@ class RoundDraws:
     - ``wire``: (N, nb, B) uniforms in [0, 1) for QSGD's stochastic rounding
       (one per padded wire element), used by the submitted payload AND by
       the auditor's recomputation;
+    - ``wire_normal``: (N, cols, rank) standard normals, PowerSGD's subspace
+      init on the squarest grid of the flat vector, used alike;
     - ``audit_sel``: (N,) uniforms, node ``i`` is audited iff below p_check;
     - ``audit_noise``: (N, D) standard normals, the simulated cross-stack
       numeric spread added to the auditor's recomputation;
@@ -67,6 +69,7 @@ class RoundDraws:
     None.
     """
     wire: Optional[torch.Tensor] = None
+    wire_normal: Optional[torch.Tensor] = None
     audit_sel: Optional[torch.Tensor] = None
     audit_noise: Optional[torch.Tensor] = None
     corrupt: Optional[torch.Tensor] = None
@@ -108,6 +111,9 @@ class RoundRandom:
 
     def wire(self, node: int, shape: Sequence[int]) -> torch.Tensor:
         return self.uniform("wire", _WIRE, node, shape)
+
+    def wire_normal(self, node: int, shape: Sequence[int]) -> torch.Tensor:
+        return self.normal("wire_normal", _WIRE, node, shape)
 
     def audit_sel(self, node: int) -> torch.Tensor:
         return self.uniform("audit_sel", _AUDIT_SEL, node, ())

@@ -222,10 +222,16 @@ def test_decode_accumulate_rejects_ragged_buckets():
 # ============================== registry ======================================
 def test_aggregator_registry_and_breakdown_points():
     for name in ("mean", "krum", "centered_clip"):
-        assert callable(tagg.get_masked_aggregator(name))
         assert callable(tmagg.get_fused_aggregator(name))
+    assert set(tagg.MASKED_AGGREGATORS) == set(jagg.MASKED_AGGREGATORS)
+    assert set(tagg.AGGREGATORS) == set(jagg.AGGREGATORS)
+    for name in tagg.MASKED_AGGREGATORS:
+        assert callable(tagg.get_masked_aggregator(name))
+        assert callable(tagg.get_aggregator(name))
     with pytest.raises(KeyError):
-        tagg.get_masked_aggregator("trimmed_mean")
+        tagg.get_masked_aggregator("geometric_median")
+    with pytest.raises(KeyError):
+        tmagg.get_fused_aggregator("trimmed_mean")
     for name in ("mean", "median", "trimmed_mean", "krum", "multi_krum",
                  "centered_clip"):
         for n in (4, 10, 16):

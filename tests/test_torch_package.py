@@ -21,8 +21,10 @@ from repro_torch.core import compression, unextractable
 from repro_torch.core.swarm import make_round_fn
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
+from repro_torch.kernels.centered_clip import ops as cc_ops
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.masked_agg import ops as magg
+from repro_torch.kernels.qsgd import ops as qsgd_ops
 from repro_torch.kernels.qsgd_decode import ops as qdec
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.swa_attention import ops as swa
@@ -72,7 +74,8 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.configs.h2o_danube_1_8b", "repro_torch.configs.rwkv6_1_6b",
             "repro_torch.models.rwkv6", "repro_torch.kernels.rwkv6_wkv.ops",
             "repro_torch.configs.zamba2_1_2b", "repro_torch.models.mamba2",
-            "repro_torch.models.hybrid", "repro_torch.kernels.mamba2_scan.ops"} <= mods
+            "repro_torch.models.hybrid", "repro_torch.kernels.mamba2_scan.ops",
+            "repro_torch.kernels.qsgd.ops", "repro_torch.kernels.centered_clip.ops"} <= mods
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -300,7 +303,46 @@ def test_decode_accumulate_kernel_bit_equal(cuda, n, size):
     out = qdec.decode_accumulate_kernel(codes, norms, w, levels=64, bucket_size=512)
     ref = qdec.decode_accumulate_plain(codes, norms, w, levels=64, bucket_size=512)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
-    assert compression.WIRE_CODECS == (None, "qsgd")
+    assert compression.WIRE_CODECS == (None, "qsgd", "topk", "powersgd")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,bucket,levels,offset", [
+    (7, 128, 16, 0), (1000, 1024, 64, 0), (3 * 5 * 17, 128, 127, 0),
+    (100_003, 512, 127, 0), (4099, 512, 64, 1),     # x not 16-byte aligned
+    (1000, 1000, 16, 3),                            # a bucket not a multiple of 4
+])
+def test_qsgd_encode_kernel_code_equal(cuda, size, bucket, levels, offset):
+    """The codes equal the plain version's, given the same norms and
+    uniforms, at ragged lengths and with signed zeros in x."""
+    x = _stack(1, size + offset).to(cuda)[0]
+    x[::97] = 0.0
+    x[1::89] = -0.0
+    x = x[offset:]
+    nb = -(-size // bucket)
+    g = torch.Generator(device=cuda).manual_seed(size)
+    u = torch.rand((nb, bucket), generator=g, device=cuda)
+    norms = compression.bucket_norms(compression.pad_buckets(x, bucket)).reshape(-1)
+    out = qsgd_ops.qsgd_encode_kernel(x, u, norms, levels=levels, bucket_size=bucket)
+    ref = qsgd_ops.qsgd_encode_plain(x, u, norms, levels=levels, bucket_size=bucket)
+    assert out.dtype == torch.int8 and torch.equal(out, ref)
+    pay = qdec.wire_encode(x, u, levels=levels, bucket_size=bucket)
+    assert torch.equal(pay.codes, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip_tau", [None, 2.0])
+@pytest.mark.parametrize("k,d", [(10, 100_003), (1, 257), (2, 1000), (3, 257), (7, 1000),
+                                 (64, 1000)])
+def test_cc_iter_kernel_bounded_and_repeatable(cuda, clip_tau, k, d):
+    """Within 3e-5 of the plain version, fixed and adaptive τ; two launches
+    give the same bits."""
+    x = _stack(k, d).to(cuda)
+    v = x.mean(0) * 0.5
+    out = cc_ops.cc_iter(x, v, clip_tau=clip_tau)
+    torch.testing.assert_close(out, cc_ops.cc_iter_plain(x, v, clip_tau), rtol=3e-5,
+                               atol=3e-5)
+    assert torch.equal(out, cc_ops.cc_iter(x, v, clip_tau=clip_tau))
 
 
 def _qkv(b, s, hq, hkv, hd, dtype, device, seed=0):

@@ -251,9 +251,12 @@ def test_unported_axes_raise():
         tswarm.SwarmConfig(staleness_bound=2)
     with pytest.raises(NotImplementedError, match="item 10"):
         tswarm.SwarmConfig(economy=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="unknown engine"):
         tswarm.make_swarm(None, {"w": torch.zeros(2)}, topt.SGD(), [], tswarm.SwarmConfig(),
-                          None, engine="sequential")
+                          None, engine="async")
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        tswarm.make_round_fn(None, topt.SGD(), {"w": torch.zeros(2)}, 2,
+                             aggregator="mean", compression_kind="fp8")
     with pytest.raises(ValueError, match="fused=True unsupported"):
         tswarm.make_round_fn(None, topt.SGD(), {"w": torch.zeros(2)}, 2,
                              aggregator="mean", compression_kind="qsgd",

@@ -106,8 +106,8 @@ def test_wire_bits_match_reference(size, levels, bucket):
 def test_wire_encode_rejects_wide_levels_and_unported_codecs():
     with pytest.raises(ValueError, match="int8"):
         tqdec.wire_encode(torch.ones(8), torch.zeros(1, 1024), levels=200)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        tcomp.roundtrip("topk", None, torch.ones(8))
+    with pytest.raises(ValueError, match="unknown wire codec"):
+        tcomp.roundtrip("fp8", None, torch.ones(8))
     assert tcomp.roundtrip(None, None, torch.ones(3)).tolist() == [1.0, 1.0, 1.0]
 
 
