@@ -25,10 +25,16 @@ Phases, each timed with CUDA events:
    D = 257 and 1,000, fixed and adaptive tau, within 3e-5, two launches
    bit-equal;
 3. the sliding-window attention kernel against its plain version at the
-   prefill's shape (B 1, S 32,768, H 32 / Hkv 8, hd 80, window 4,096, bf16)
-   and at ragged ones (S not a multiple of the tile, a window below a tile
-   or not a multiple of one or at least S, hd 64 / 80 / 128, float32 and
-   bfloat16): within 2e-2 in bf16 and 2e-4 in f32, two launches bit-equal;
+   prefill's shape (B 1, S 32,768, H 32 / Hkv 8, hd 80, window 4,096, bf16),
+   at zamba2's full causal shape (B 1, S 32,768, H 32 / 32, hd 64,
+   window = S, bf16) and at ragged ones (S not a multiple of the tile or
+   below one, a window below a tile or not a multiple of one or at least S,
+   hd 64 / 80 / 128, B 2, float32 and bfloat16): within 2e-2 in bf16 and
+   2e-4 in f32 elementwise, two launches bit-equal; in bf16 also within
+   6e-4 mean row relative L2 (L2 over the head dim, each query and head a
+   row), a bound that the plain version with p rounded to bf16 (a control,
+   computed at every bf16 case) must exceed, so the check tells the
+   kernel's fp32 p.v (the hi/lo split of p) from a bf16 one;
 3b. the WKV kernel against its plain version at rwkv6-1.6b's served shape
    (B 1, S 32,768, H 32, K 64, bf16) and at ragged ones (S = 1, S not a
    multiple of the chunk, K 32 / 64 / 128, float32 and bfloat16, a non-zero
@@ -103,8 +109,10 @@ Phases, each timed with CUDA events:
    32768 --batch 1`` (1,170,157,696 params built: 38 Mamba2 layers, the
    shared attention block, with no window, after each group of 6), with
    phase 7's checks and a peak memory far below the 128 GiB that one
-   (32,768 x 32,768) float32 score matrix of 32 heads would take; one
-   served prefill under torch.profiler (device time by kernel); then
+   (32,768 x 32,768) float32 score matrix of 32 heads would take; the
+   shared block's attention runs the sliding-window kernel at window = S
+   (6 launches a prefill); one served prefill under torch.profiler (device
+   time by kernel); then
    ``decode`` of 4 prompts of 1,040 tokens, 32 new tokens;
 7f. decode against the kernel prefill on a float32 copy of the full-width
    params, teacher-forced: each layer stepped through the 1,040-token
@@ -116,16 +124,26 @@ Phases, each timed with CUDA events:
    32,768-token prefill: teacher-forced, each layer's update and the
    logits within 1e-2 relative L2; free-running, the kernel route's logit
    gap at most twice the gap between two routes without the kernel
-   (``ssd_plain`` and ``ssd_chunked``), or 1e-2;
+   (``ssd_plain`` and ``ssd_chunked``, both with the blockwise attention),
+   or 1e-2;
+8d. the shared block's attention kernel route against the blockwise route
+   (``use_pallas_kernels`` off) on the served zamba2 prefill:
+   teacher-forced, at each of the block's 6 applications both routes take
+   the kernel route's input, and the update and the last logits agree
+   within 4e-3 relative L2;
 9. time each kernel, its plain version and the matching PyTorch library
-   call where one exists, at the main paths' shapes.
+   call where one exists, at the main paths' shapes; the attention kernel
+   at both of its served shapes (danube's band against ``flex_attention``
+   with a sliding-window block mask, zamba2's causal triangle against
+   ``scaled_dot_product_attention(is_causal=True)``).
 
 Each driven path (phases 4, 4b, 5, 7, 7c and 7e) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (all
-nine kernels), the
+nine kernels, the attention kernel twice: ``swa_attention`` at danube's
+shape and ``swa_attention@zamba2``), the
 card's ``name, power.limit`` from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -164,10 +182,18 @@ RWKV_DECODE_LEN = 1_040         # not a multiple of the kernel's 16-token chunk
 # the zamba2 serving path: zamba2-1.2b's prefill at the same length
 SSD_SHAPE = dict(b=1, s=32_768, h=64, p=64, n=64)
 ZAMBA_LAYERS = 38               # Mamba2 layers: one ssd_scan launch each a prefill
+ZAMBA_SHARED = 6                # applications of the shared attention block a prefill
+# its attention: full causal, through the sliding-window kernel at window = S
+CAUSAL_SHAPE = dict(b=1, s=32_768, hq=32, hkv=32, hd=64, window=32_768)
+# phase 3's bound on the attention kernel's mean row relative L2 against its
+# plain version in bf16, set between the kernel's reading and that of the
+# plain version with p rounded to bf16 (the control, which must exceed it)
+SWA_ROW_REL = 6e-4
 ZAMBA_PARAMS = 1_170_157_696    # the params built (param_count() says 1,170,155,264)
 ZAMBA_DECODE_LEN = 1_040        # not a multiple of the kernel's 32-token chunk
 
-# kernel -> (source, TPU kernel it replaces, the driven path that is its own)
+# kernel -> (source, TPU kernel it replaces, the driven path that is its own[,
+# the launch counter, where the row is the kernel at another path's shape])
 KERNELS = {
     "masked_median": ("src/repro_torch/csrc/masked_agg.cu",
                       "src/repro/kernels/masked_agg/kernel.py:133", "showcase"),
@@ -184,6 +210,9 @@ KERNELS = {
                 "src/repro/kernels/centered_clip/kernel.py:48", "showcase_sequential"),
     "swa_attention": ("src/repro_torch/csrc/swa_attention.cu",
                       "src/repro/kernels/swa_attention/kernel.py:65", "protocol_serve"),
+    "swa_attention@zamba2": ("src/repro_torch/csrc/swa_attention.cu",
+                             "src/repro/kernels/swa_attention/kernel.py:65",
+                             "protocol_serve_zamba2", "swa_attention"),
     "wkv_scan": ("src/repro_torch/csrc/rwkv6_wkv.cu",
                  "src/repro/kernels/rwkv6_wkv/kernel.py:73", "protocol_serve_rwkv6"),
     "ssd_scan": ("src/repro_torch/csrc/mamba2_ssd.cu",
@@ -204,7 +233,8 @@ EXPECTED_LAUNCHES = {
     "sign_flip_minority": {"masked_median": 1, "masked_cc_iter": 3},
     "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
     "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
-    "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS},
+    "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS,
+                              "swa_attention": ZAMBA_SHARED * SERVE_PREFILLS},
 }
 
 
@@ -248,6 +278,7 @@ class Smoke:
         self.build = build
         self.dev = torch.device("cuda")
         self.errors = {}           # kernel -> max abs error at main-path shapes
+        self.row_errors = {}       # kernel -> mean row relative L2, where phase 3 reads one
         self.launches = {}         # driven path -> {kernel: launches on it}
 
     # -- helpers ------------------------------------------------------------------
@@ -362,6 +393,8 @@ class Smoke:
                    lambda: self.zamba_decode_vs_prefill(zamba_out))
         self.phase("8c kernel route vs ssd_chunked route (zamba2 full width)",
                    lambda: self.ssd_route_gap(zamba_out))
+        self.phase("8d kernel route vs blockwise route (zamba2 full width)",
+                   lambda: self.causal_route_gap(zamba_out))
         del zamba_out
         self.free()
         rows = self.phase("9 timings", self.timings)
@@ -484,13 +517,17 @@ class Smoke:
     def swa_vs_plain(self):
         torch = self.torch
         from repro_torch.kernels.swa_attention import ops as swa
-        main = tuple(SWA_SHAPE.values())
-        cases = [(main, torch.bfloat16)] + [
+        main, causal = tuple(SWA_SHAPE.values()), tuple(CAUSAL_SHAPE.values())
+        cases = [(main, torch.bfloat16), (causal, torch.bfloat16)] + [
             (shape, dt) for shape in (
                 (2, 1000, 8, 2, 64, 17),      # S not a multiple of 64, window < a tile
                 (1, 4099, 16, 4, 80, 1000),   # window not a multiple of a tile
                 (2, 777, 4, 4, 128, 4096),    # window >= S
-                (1, 2000, 8, 1, 128, 64))     # window == one tile, G = 8
+                (1, 2000, 8, 1, 128, 64),     # window == one tile, G = 8
+                (2, 1000, 8, 8, 64, 1000),    # window == S, MHA, B 2
+                (1, 4099, 16, 16, 64, 4099),  # window == S, ragged past a 128 tile
+                (1, 3001, 16, 4, 80, 5000),   # window > S, GQA, hd 80
+                (2, 100, 4, 2, 80, 4096))     # S below one 128-query tile
             for dt in (torch.float32, torch.bfloat16)]
         for (b, s, hq, hkv, hd, window), dt in cases:
             q, k, v = self.swa_inputs(b, s, hq, hkv, hd, dt)
@@ -507,11 +544,54 @@ class Smoke:
             check(bool(torch.isfinite(o).all()) and bool(
                 ((o - r).abs() <= tol + tol * r.abs()).all()),
                 f"swa_attention beyond {tol} of its plain version ({tag}): {err:.3e}")
-            if (b, s, hq, hkv, hd, window) == main:
-                self.record_err("swa_attention", o, r)
-            print(f"  swa_attention ok: {tag}, max abs err {err:.3e}", flush=True)
+            rel = self.row_rel(o, r)
+            note = f"row rel L2 {rel:.3e}"
+            if dt == torch.bfloat16:
+                # the elementwise bound cannot tell a bf16 p from the fp32 p
+                # of the hi/lo split; the mean row error can, and the control
+                # (the plain version with p rounded to bf16) shows it here
+                control = self.row_rel(self.swa_plain_bf16_p(q, k, v, window), r)
+                note += f" (bf16-p control {control:.3e}, limit {SWA_ROW_REL:.0e})"
+                check(control > SWA_ROW_REL,
+                      f"swa_attention: the bf16-p control is within {SWA_ROW_REL:.0e} "
+                      f"of plain ({tag}: {control:.3e}), so the check cannot see it")
+                check(rel <= SWA_ROW_REL, f"swa_attention beyond {SWA_ROW_REL:.0e} mean row "
+                      f"relative L2 of its plain version ({tag}): {rel:.3e}")
+            for name, shape in (("swa_attention", main), ("swa_attention@zamba2", causal)):
+                if (b, s, hq, hkv, hd, window) == shape and dt == torch.bfloat16:
+                    self.record_err(name, o, r)
+                    self.row_errors[name] = rel
+            print(f"  swa_attention ok: {tag}, max abs err {err:.3e}, {note}", flush=True)
             del q, k, v, out, again, ref, o, r
         self.free()
+
+    def row_rel(self, a, b):
+        """The mean over (batch, position, head) rows of |a - b| / |b|, L2
+        over the head dim: each row weighs alike, where a global norm is
+        half made of the first tile's few large rows."""
+        a, b = a.float(), b.float()
+        return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp(min=1e-30)).mean())
+
+    def swa_plain_bf16_p(self, q, k, v, window, block_q=512):
+        """The control of phase 3: ``swa_attention_plain`` with p rounded to
+        bf16 before p.v, what the kernel would compute without the lo half
+        of its p."""
+        torch = self.torch
+        b, s, hq, hd = q.shape
+        hkv = k.shape[2]
+        out = torch.empty_like(q)
+        for q0 in range(0, s, block_q):
+            q1 = min(s, q0 + block_q)
+            k0 = max(0, q0 - window + 1)
+            qg = q[:, q0:q1].reshape(b, q1 - q0, hkv, hq // hkv, hd).float()
+            sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k[:, k0:q1].float()) * hd ** -0.5
+            qpos = torch.arange(q0, q1, device=q.device)[:, None]
+            kpos = torch.arange(k0, q1, device=q.device)[None, :]
+            sc = sc.masked_fill((kpos > qpos) | (qpos - kpos >= window), -1e30)
+            p = torch.softmax(sc, dim=-1).bfloat16().float()
+            o = torch.einsum("bkgqs,bskd->bqkgd", p, v[:, k0:q1].float())
+            out[:, q0:q1] = o.reshape(b, q1 - q0, hq, hd).to(q.dtype)
+        return out
 
     def wkv_inputs(self, b, s, h, k, dtype, decay="model", seed=0):
         """r, k, v, w (B, S, H, K) in ``dtype`` and u (H, K) float32.  w as
@@ -1396,7 +1476,9 @@ class Smoke:
         agree within 1e-2 relative L2 (the shared block is the same on both
         routes).  Free-running, the kernel route's logit gap to
         ``ssd_chunked`` is held to at most twice the gap between two routes
-        without the kernel (``ssd_plain`` in its place), or 1e-2."""
+        without the kernel (``ssd_plain`` in its place), or 1e-2; with the
+        flag off the shared block takes the blockwise attention, so the
+        witness route (``ssd_plain``) takes it too."""
         torch = self.torch
         import torch.nn.functional as F
         from dataclasses import replace
@@ -1438,7 +1520,7 @@ class Smoke:
                 if lp is None:
                     a = b = T._layer_apply(sp, cfg_k, x, positions)
                     y = T._layer_apply(sp, cfg_c, y, positions)
-                    z = T._layer_apply(sp, cfg_k, z, positions)
+                    z = T._layer_apply(sp, cfg_c, z, positions)
                 else:
                     # the block's update, as _mamba_layer adds it to x
                     h = rms_norm(x, lp["ln"], cfg_k.norm_eps)
@@ -1470,6 +1552,59 @@ class Smoke:
         check(free_kernel <= max(1e-2, 2 * free_witness),
               f"free-running, the kernel route parts from ssd_chunked ({free_kernel:.3e}) "
               f"more than twice as far as two routes without the kernel ({free_witness:.3e})")
+
+    def causal_route_gap(self, out):
+        """The served zamba2 prefill's shared-block attention on the kernel
+        route (``swa_attention`` at window = S) against the blockwise route
+        (``use_pallas_kernels`` off: the reference's float32 online softmax
+        in blocks of 1,024).  Teacher-forced: the mamba layers run the
+        served (kernel) route, and at each of the shared block's 6
+        applications both routes take the kernel route's input; each
+        application's update and the last logits (the remainder layers run
+        on from each route's last application) must agree within 4e-3
+        relative L2 (three times the reading of the kernel as it stands)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from dataclasses import replace
+        from repro_torch.core.serving import device_clock
+        from repro_torch.models import hybrid as Hy
+        from repro_torch.models import transformer as T
+
+        cfg_k = out["model"].cfg
+        cfg_b = replace(cfg_k, use_pallas_kernels=False)
+        params, tokens = out["params"], out["batch"]["tokens"]
+        groups, rem = Hy.mamba_layers(params, cfg_k)
+        sp = Hy.shared_block(params)
+        m = cfg_k.mamba_per_group
+        gaps, t_kernel, t_block = [], 0.0, 0.0
+        with torch.inference_mode():
+            x = F.embedding(tokens, params["embed"])
+            positions = torch.arange(tokens.shape[1], device=self.dev).expand(tokens.shape)
+            for gi in range(len(groups) // m):
+                for lp in groups[gi * m:(gi + 1) * m]:
+                    x = Hy._mamba_layer(lp, cfg_k, x)
+                t0 = device_clock(self.dev)
+                a = T._layer_apply(sp, cfg_k, x, positions)
+                t1 = device_clock(self.dev)
+                b = T._layer_apply(sp, cfg_b, x, positions)
+                t_kernel += t1 - t0
+                t_block += device_clock(self.dev) - t1
+                gaps.append(self.rel(a.float() - x.float(), b.float() - x.float()))
+                x = a
+            for lp in rem:
+                a, b = Hy._mamba_layer(lp, cfg_k, a), Hy._mamba_layer(lp, cfg_k, b)
+            la, lb = (self.last_logits(params, cfg_k, h) for h in (a, b))
+        gap = self.rel(la, lb)
+        print(f"  shared block, kernel route vs blockwise route, teacher-forced: updates "
+              f"within {max(gaps):.3e} relative L2 (worst of {len(gaps)} applications: "
+              f"{[float(f'{g:.2e}') for g in gaps]}), last logits {gap:.3e}; the kernel "
+              f"route's logits equal the served ones: {bool(torch.equal(la, out['ref']))}; "
+              f"{len(gaps)} shared-block applications {t_kernel:.3f} s on the kernel route, "
+              f"{t_block:.3f} s on the blockwise route", flush=True)
+        check(len(gaps) == ZAMBA_SHARED, f"{len(gaps)} shared-block applications")
+        check(max(gaps) <= 4e-3 and gap <= 4e-3,
+              f"kernel and blockwise routes differ beyond 4e-3 (updates {max(gaps):.3e}, "
+              f"logits {gap:.3e})")
 
     def time_ms(self, fn, reps):
         torch = self.torch
@@ -1551,7 +1686,7 @@ class Smoke:
             None, n * nb * BUCKET + n * nb * f32 + n * f32 + nb * BUCKET * f32, 0))
         del codes, norms, w
         self.free()
-        rows.append(self.swa_row())
+        rows += self.swa_rows()
         rows.append(self.wkv_row())
         rows.append(self.ssd_row())
         return rows
@@ -1586,27 +1721,76 @@ class Smoke:
         return self.row("ssd_scan", lambda: ops.ssd_kernel(*args),
                         lambda: ops.ssd_plain(*args), None, nbytes, 4 * n * p * b * s * h)
 
-    def swa_row(self):
-        """swa_attention at the serving prefill's shape.  The library call is
-        one scaled_dot_product_attention with the band as a boolean mask."""
+    def flex_band(self, qt, kt, vt, window):
+        """One ``flex_attention`` call over the band only (a sliding-window
+        block mask, compiled), or None and the reason where this torch
+        cannot run it."""
+        import os
+        torch = self.torch
+        # the compile's caches stay inside the checkout (build/ is ignored by git)
+        for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+            os.environ.setdefault(var, str(ROOT / "build" / "torch_compile" / sub))
+        try:
+            from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+            def band(b, h, q_idx, kv_idx):
+                return (q_idx >= kv_idx) & (q_idx - kv_idx < window)
+
+            s = qt.shape[2]
+            mask = create_block_mask(band, B=None, H=None, Q_LEN=s, KV_LEN=s, device=qt.device)
+            flex = torch.compile(flex_attention)
+            fn = lambda: flex(qt, kt, vt, block_mask=mask, enable_gqa=True)
+            fn()
+            torch.cuda.synchronize()
+            return fn, None
+        except Exception as e:                      # a yardstick only: say why, go on
+            return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200] if str(e) else ''}"
+
+    def swa_rows(self):
+        """swa_attention at both of its served shapes.  danube's band: the
+        library call is one ``flex_attention`` with a sliding-window block
+        mask (it computes only the band), or, where this torch cannot run
+        it, one scaled_dot_product_attention with the band as a boolean mask
+        (which scores all S^2 pairs).  zamba2's causal triangle:
+        ``scaled_dot_product_attention(is_causal=True)``, the same function
+        with p rounded to bf16.  Operations: 4 hd flops a pair of this run's
+        band (the kernel's hi/lo split of p does 6 hd)."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.swa_attention import ops as swa
-        b, s, hq, hkv, hd, window = SWA_SHAPE.values()
-        q, k, v = self.swa_inputs(b, s, hq, hkv, hd, torch.bfloat16, seed=3)
-        i = torch.arange(s, device=self.dev)
-        band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))          # (B, H, S, hd)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
-                                                     enable_gqa=True)
-        diff = (lib().transpose(1, 2).float()
-                - swa.swa_attention_kernel(q, k, v, window=window).float()).abs().max()
-        print(f"  sdpa vs the kernel: max abs diff {float(diff):.3e}", flush=True)
-        pairs = sum(min(j + 1, window) for j in range(s))        # this run's band
-        nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)  # q, o, k, v in bf16
-        return self.row("swa_attention", lambda: swa.swa_attention_kernel(q, k, v, window=window),
-                        lambda: swa.swa_attention_plain(q, k, v, window=window), lib,
-                        nbytes, 4 * hd * pairs * b * hq, BF16_FLOP_PER_S)
+        rows = []
+        for name, shape in (("swa_attention", SWA_SHAPE),
+                            ("swa_attention@zamba2", CAUSAL_SHAPE)):
+            b, s, hq, hkv, hd, window = shape.values()
+            q, k, v = self.swa_inputs(b, s, hq, hkv, hd, torch.bfloat16, seed=3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))          # (B, H, S, hd)
+            kern = lambda: swa.swa_attention_kernel(q, k, v, window=window)
+            if window >= s:
+                lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True)
+                lib_name = "sdpa is_causal"
+            else:
+                lib, why = self.flex_band(qt, kt, vt, window)
+                lib_name = "flex_attention (band block mask)"
+                if lib is None:
+                    print(f"  flex_attention cannot run here ({why}); the library column is "
+                          f"sdpa with the band as a boolean mask", flush=True)
+                    i = torch.arange(s, device=self.dev)
+                    band = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+                    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                                 enable_gqa=True)
+                    lib_name = "sdpa boolean band mask"
+            diff = (lib().transpose(1, 2).float() - kern().float()).abs().max()
+            print(f"  {name}: library call {lib_name}, max abs diff to the kernel "
+                  f"{float(diff):.3e}", flush=True)
+            pairs = sum(min(j + 1, window) for j in range(s))        # this run's band
+            nbytes = 2 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)  # q, o, k, v in bf16
+            rows.append(self.row(name, kern,
+                                 lambda: swa.swa_attention_plain(q, k, v, window=window), lib,
+                                 nbytes, 4 * hd * pairs * b * hq, BF16_FLOP_PER_S))
+            del q, k, v, qt, kt, vt, kern, lib
+            self.free()
+        return rows
 
     def row(self, name, kern, plain, lib, nbytes, flops, flop_rate=FP32_FLOP_PER_S):
         ms = self.time_ms(kern, 10)
@@ -1614,12 +1798,14 @@ class Smoke:
         lib_ms = self.time_ms(lib, 2) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / flop_rate * 1e3
-        src, replaces, path = KERNELS[name]
+        src, replaces, path, *counter = KERNELS[name]
+        counter = counter[0] if counter else name
         # launches: on the kernel's own path; by path: every driven path
-        by_path = {p: c[name] for p, c in self.launches.items() if c[name]}
+        by_path = {p: c[counter] for p, c in self.launches.items() if c[counter]}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": self.launches[path][name], "launches_by_path": by_path,
+               "launches": self.launches[path][counter], "launches_by_path": by_path,
                "max_abs_err": self.errors[name],
+               **({"row_rel_l2": self.row_errors[name]} if name in self.row_errors else {}),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": lib_ms}

@@ -43,8 +43,18 @@ def _col_chunks(n: int, d: int):
 
 
 # ------------------------------ dense aggregators ------------------------------
+def inverse(count: int, device) -> torch.Tensor:
+    """A float32 1/count, rounded once.  The dense means multiply their sum
+    by it, as the reference's compiled ``jnp.mean`` does (XLA folds the
+    division by a constant into this multiply); the masked means divide,
+    as theirs do (a traced count)."""
+    return (torch.ones((), dtype=torch.float32, device=device)
+            / torch.full((), float(count), dtype=torch.float32, device=device))
+
+
 def mean(updates: torch.Tensor) -> torch.Tensor:
-    return torch.mean(updates.float(), dim=0)
+    x = updates.float()
+    return torch.sum(x, dim=0) * inverse(x.shape[0], x.device)
 
 
 def coordinate_median(updates: torch.Tensor) -> torch.Tensor:
@@ -68,10 +78,11 @@ def coordinate_median(updates: torch.Tensor) -> torch.Tensor:
 def trimmed_mean(updates: torch.Tensor, *, trim: int = 1) -> torch.Tensor:
     n, d = updates.shape
     trim = min(trim, (n - 1) // 2)
+    inv = inverse(n - 2 * trim, updates.device)
     out = torch.empty(d, dtype=torch.float32, device=updates.device)
     for c0, c1 in _col_chunks(n, d):
         s = torch.sort(updates[:, c0:c1].float(), dim=0).values
-        out[c0:c1] = torch.mean(s[trim:n - trim], dim=0)
+        out[c0:c1] = torch.sum(s[trim:n - trim], dim=0) * inv
     return out
 
 
@@ -90,14 +101,12 @@ def krum(updates: torch.Tensor, *, f: int = 1) -> torch.Tensor:
     return updates[torch.argmin(_krum_scores(updates, f))].float()
 
 
-def _rows_mean(updates: torch.Tensor, rows: torch.Tensor,
-               count: float) -> torch.Tensor:
-    """Σ over ``rows`` (in that order) of the update rows, / ``count``."""
+def _rows_sum(updates: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Σ over ``rows`` (in that order) of the update rows."""
     n, d = updates.shape
-    div = torch.full((), count, device=updates.device)
     out = torch.empty(d, dtype=torch.float32, device=updates.device)
     for c0, c1 in _col_chunks(n, d):
-        out[c0:c1] = torch.sum(updates[rows, c0:c1].float(), dim=0) / div
+        out[c0:c1] = torch.sum(updates[rows, c0:c1].float(), dim=0)
     return out
 
 
@@ -107,7 +116,7 @@ def multi_krum(updates: torch.Tensor, *, f: int = 1, m: int = 0) -> torch.Tensor
     n = updates.shape[0]
     m = min(m or max(n - int(f) - 2, 1), n)
     best = torch.argsort(_krum_scores(updates, f), stable=True)[:m]
-    return _rows_mean(updates, best, float(m))
+    return _rows_sum(updates, best) * inverse(m, updates.device)
 
 
 def centered_clip(updates: torch.Tensor, *, clip_tau: Optional[float] = None,
@@ -257,7 +266,7 @@ def masked_multi_krum(updates: torch.Tensor, mask: torch.Tensor, *,
     m_eff = max(k_act - int(f) - 2, 1) if auto else min(max(int(m), 1), k_act)
     scores = _krum_scores_from_d2(_pairwise_d2(updates), mask, f)
     best = torch.argsort(scores, stable=True)[:m_eff]
-    out = _rows_mean(updates, best, float(m_eff))
+    out = _rows_sum(updates, best) / torch.full((), float(m_eff), device=updates.device)
     return torch.where(torch.any(mask), out, torch.zeros_like(out))
 
 

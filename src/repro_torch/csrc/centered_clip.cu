@@ -25,9 +25,10 @@
 //   (b) one block adds the partials in block order, takes the norms, tau
 //       (the same sorting network over the k norms) and the k scales;
 //   (c) one thread per column: out = v + (sum_i (x_i - v) * s_i) * (1 / k),
-//       rows in order, round-to-nearest multiply and add (no contraction).
-// The mean multiplies the sum by a float32 1/k, as XLA's compiled jnp.mean
-// and torch's CUDA mean do; masked_cc_iter divides the masked sum by k,
+//       rows in order, round-to-nearest multiply and add in the sum, and
+//       the last multiply and add of v fused into one rounding.
+// The mean multiplies the sum by a float32 1/k, and the add of v is fused
+// with it, as XLA compiles the reference's body; masked_cc_iter divides the masked sum by k,
 // which rounds differently, so this kernel has its own entry point and its
 // own plain version.
 //
@@ -80,7 +81,7 @@ cc_dense_apply(const float* __restrict__ x, const float* __restrict__ v,
     const float df = __fsub_rn(x[(long long)i * d + c], vc);
     acc = __fadd_rn(acc, __fmul_rn(df, ss[i]));
   }
-  out[c] = __fadd_rn(vc, __fmul_rn(acc, inv_k));
+  out[c] = __fmaf_rn(acc, inv_k, vc);
 }
 
 template <int NP>

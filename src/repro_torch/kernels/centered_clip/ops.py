@@ -8,7 +8,8 @@ of ``csrc/centered_clip.cu``, on CPU tensors it runs the plain version,
 body (reference ``aggregation.py:131-136``) expression for expression.
 τ is fixed, or adaptive (``clip_tau=None``): the median of the k row
 norms, computed on the device.  The mean multiplies the row sum by a
-float32 1/k, so this is not ``masked_cc_iter`` with an all-true mask
+float32 1/k, fused with the add of v into one rounding as XLA compiles the
+reference's body, so this is not ``masked_cc_iter`` with an all-true mask
 (which divides by k).
 
 :func:`centered_clip` warm-starts from the dense coordinate median
@@ -50,7 +51,12 @@ def cc_iter_plain(x: torch.Tensor, v: torch.Tensor,
     scale = torch.minimum(torch.ones((), device=x.device),
                           tau / torch.maximum(norm, torch.full((), 1e-12,
                                                                device=x.device)))
-    return v + torch.mean(diff * scale, dim=0)
+    total = torch.sum(diff * scale, dim=0)
+    inv = aggregation.inverse(x.shape[0], x.device)
+    # v + total * (1/k) rounded once, as the reference's compiled body fuses
+    # it into a multiply-add: the product is exact in float64, and the sum
+    # rounds twice only where its float64 value falls on a float32 midpoint
+    return (v.double() + total.double() * inv.double()).float()
 
 
 def _check(x: torch.Tensor, v: torch.Tensor) -> None:

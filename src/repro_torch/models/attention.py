@@ -3,12 +3,17 @@ with a ring buffer (twin of ``repro/models/attention.py``).
 
 Layouts are the reference's: q (B, S, Hq, hd), k and v (B, S, Hkv, hd).
 
-- Full attention (no window): the reference's blockwise online softmax in
-  float32, over q blocks of ``q_block`` and kv blocks of ``kv_block``
-  tokens (each halved until it divides its length), so no (Sq, Skv) score
-  matrix is ever held: a 32,768-token prompt holds one (1,024 x 1,024)
-  block of scores per head at a time.  Causal kv blocks strictly above the
-  diagonal are skipped.
+- Full attention (no window): with ``use_pallas``, ``causal`` and
+  Sq == Skv, the kernel of ``kernels/swa_attention`` with window = Sq, the
+  same function (zamba2's shared block in a served prefill).  Otherwise the
+  reference's blockwise online softmax in float32, over q blocks of
+  ``q_block`` and kv blocks of ``kv_block`` tokens (each halved until it
+  divides its length), so no (Sq, Skv) score matrix is ever held: a
+  32,768-token prompt holds one (1,024 x 1,024) block of scores per head
+  at a time.  Causal kv blocks strictly above the diagonal are skipped.
+  The blockwise route serves training, Sq != Skv and
+  ``use_pallas_kernels=False``.  (The reference's hybrid never passes
+  ``use_pallas`` to its attention, so it always takes the blockwise route.)
 - Sliding window: with ``use_pallas`` and Sq == Skv, the kernel of
   ``kernels/swa_attention`` (CUDA on the card, its plain version on the
   CPU); otherwise :func:`_swa`, the reference's banded float32 twin, which
@@ -50,6 +55,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return swa_attention(q, k, v, window=window)
         return _swa(_grouped(q, hkv), k, v, window=window, q_block=q_block,
                     scale=hd ** -0.5)
+    if use_pallas and causal and sq == skv:
+        return swa_attention(q, k, v, window=sq)
     kv_block = min(kv_block, skv)
     while skv % kv_block:
         kv_block //= 2

@@ -12,10 +12,11 @@ stacked (remainder, ...), ``shared.attn.*``, ``shared.ffn.*``,
 ``shared.ln_*``, ``embed``, ``ln_f`` and ``unembed``; the layers run in a
 Python loop.  The shared block is a dense transformer layer
 (``transformer._layer_apply`` / ``layer_decode`` on ``shared.*``); zamba2
-has no window, so its attention is the blockwise online softmax of
-``models/attention.py``.  Decode keeps one full-length K/V cache per
-application of the shared block (no ring) and one SSD state and conv
-buffer per mamba layer, updated in place.
+has no window, so with ``use_pallas_kernels`` its prefill attention is the
+``swa_attention`` kernel at window = S (full causal), and without it the
+blockwise online softmax of ``models/attention.py``.  Decode keeps one
+full-length K/V cache per application of the shared block (no ring) and
+one SSD state and conv buffer per mamba layer, updated in place.
 """
 from __future__ import annotations
 

@@ -28,8 +28,12 @@ def global_norm(tree: Params) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
+    """Scale by min(1, max_norm / max(norm, 1e-12)), one float32 division
+    as in the reference (a Python float over a tensor is reciprocal-then-
+    multiply in torch: two roundings)."""
     norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    top = torch.full((), float(max_norm), dtype=torch.float32, device=norm.device)
+    scale = torch.clamp(top / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: g * scale for k, g in grads.items()}
 
 
