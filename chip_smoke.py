@@ -36,17 +36,24 @@ Phases, each timed with CUDA events:
    computed at every bf16 case) must exceed, so the check tells the
    kernel's fp32 p.v (the hi/lo split of p) from a bf16 one;
 3b. the WKV kernel against its plain version at rwkv6-1.6b's served shape
-   (B 1, S 32,768, H 32, K 64, bf16) and at ragged ones (S = 1, S not a
-   multiple of the chunk, K 32 / 64 / 128, float32 and bfloat16, a non-zero
-   initial state, strong decay): y within 1e-4 relative L2 in float32 and
-   1e-2 in bfloat16, s_final within 1e-4, two launches bit-equal;
+   (B 1, S 32,768, H 32, K 64, bf16) and at ragged ones (S = 1, S at the
+   64-token chunk's boundaries 63, 64, 65 and 197, S not a multiple of the
+   chunk, K 32 / 64 / 128, float32 and bfloat16, a non-zero initial state,
+   strong decay): y within 1e-4 relative L2 in float32 and the ops
+   module's ``BF16_REL`` in bfloat16, a bound that the plain version with
+   its float32 product operands rounded to bf16 (a control, the single-pass
+   design, computed at every bf16 case) must exceed at the served shape and
+   under strong decay, so the check tells the kernel's hi/lo split from one
+   bf16 pass; s_final within 1e-4; two launches bit-equal;
 3c. the SSD scan kernel against its plain version at zamba2-1.2b's served
    shape (B 1, S 32,768, H 64, P 64, N 64, bf16) and at ragged ones (S = 1,
-   1,040 and the prime 997, P 16 / 32 / 48 / 64, N 16 / 48 / 64 / 128,
-   float32 and bfloat16, a non-zero initial state, strong decay): y within
-   1e-4 relative L2 in float32, and in bfloat16 within one bf16 rounding
-   elementwise and 1e-2 relative L2; h_final within 1e-4; two launches
-   bit-equal;
+   63, 64, 65, 197, 1,040 and the prime 997, P 16 / 32 / 48 / 64 / 80, N
+   16 / 48 / 64 / 128, H not a multiple of the kernel's head group, float32
+   and bfloat16, a non-zero initial state, strong decay): y within 1e-4
+   relative L2 in float32, and in bfloat16 within one bf16 rounding
+   elementwise and the ops module's ``BF16_REL`` relative L2, a bound that
+   its bf16-operand control must exceed at the served shape and under
+   strong decay; h_final within 1e-4; two launches bit-equal;
 4. the swarm's main path: ``python -m repro_torch.launch.swarm --full
    --rounds 3`` (the showcase: protocol-125m at full width, 10 nodes, QSGD
    wire, CenteredClip, audits), with finite loss, only Byzantine nodes
@@ -91,8 +98,10 @@ Phases, each timed with CUDA events:
 7c. the serving path on rwkv6 (``protocol_serve_rwkv6``): ``python -m
    repro_torch.launch.protocol_inference --arch rwkv6-1.6b --full --seq
    32768 --batch 1`` (1,590,235,136 params built), with phase 7's checks;
-   then ``decode`` of 4 prompts of 1,040 tokens (not a multiple of a
-   chunk), 32 new tokens;
+   one served prefill under torch.profiler (device time by kernel, and
+   the mean time of each of the WKV kernel's three launches); then
+   ``decode`` of 4 prompts of 1,040 tokens (not a multiple of a chunk), 32
+   new tokens;
 7d. decode against the kernel prefill on a float32 copy of the full-width
    params (where prefill's bf16 cast of w does nothing): each layer's
    recurrent state after stepping the 1,040-token prompts within 1e-4
@@ -112,8 +121,8 @@ Phases, each timed with CUDA events:
    (32,768 x 32,768) float32 score matrix of 32 heads would take; the
    shared block's attention runs the sliding-window kernel at window = S
    (6 launches a prefill); one served prefill under torch.profiler (device
-   time by kernel); then
-   ``decode`` of 4 prompts of 1,040 tokens, 32 new tokens;
+   time by kernel, and the mean time of each of the SSD kernel's three
+   launches); then ``decode`` of 4 prompts of 1,040 tokens, 32 new tokens;
 7f. decode against the kernel prefill on a float32 copy of the full-width
    params, teacher-forced: each layer stepped through the 1,040-token
    prompts from the prefill's input to it; each mamba layer's SSD state
@@ -132,10 +141,12 @@ Phases, each timed with CUDA events:
    the kernel route's input, and the update and the last logits agree
    within 4e-3 relative L2;
 9. time each kernel, its plain version and the matching PyTorch library
-   call where one exists, at the main paths' shapes; the attention kernel
-   at both of its served shapes (danube's band against ``flex_attention``
-   with a sliding-window block mask, zamba2's causal triangle against
-   ``scaled_dot_product_attention(is_causal=True)``).
+   call where one exists, at the main paths' shapes (the two scans' rows
+   also give the bytes a call holds beyond its outputs and the mean time
+   of each of their three launches from 7c and 7e); the attention
+   kernel at both of its served shapes (danube's band against
+   ``flex_attention`` with a sliding-window block mask, zamba2's causal
+   triangle against ``scaled_dot_product_attention(is_causal=True)``).
 
 Each driven path (phases 4, 4b, 5, 7, 7c and 7e) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
@@ -178,7 +189,7 @@ WRAP_STEPS = 128
 WKV_SHAPE = dict(b=1, s=32_768, h=32, k=64)
 RWKV_LAYERS = 24
 RWKV_PARAMS = 1_590_235_136     # the params built (param_count() says 1,929,480,192)
-RWKV_DECODE_LEN = 1_040         # not a multiple of the kernel's 16-token chunk
+RWKV_DECODE_LEN = 1_040         # not a multiple of the kernel's 64-token chunk
 # the zamba2 serving path: zamba2-1.2b's prefill at the same length
 SSD_SHAPE = dict(b=1, s=32_768, h=64, p=64, n=64)
 ZAMBA_LAYERS = 38               # Mamba2 layers: one ssd_scan launch each a prefill
@@ -190,7 +201,7 @@ CAUSAL_SHAPE = dict(b=1, s=32_768, hq=32, hkv=32, hd=64, window=32_768)
 # plain version with p rounded to bf16 (the control, which must exceed it)
 SWA_ROW_REL = 6e-4
 ZAMBA_PARAMS = 1_170_157_696    # the params built (param_count() says 1,170,155,264)
-ZAMBA_DECODE_LEN = 1_040        # not a multiple of the kernel's 32-token chunk
+ZAMBA_DECODE_LEN = 1_040        # not a multiple of the kernel's 64-token chunk
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own[,
 # the launch counter, where the row is the kernel at another path's shape])
@@ -280,6 +291,7 @@ class Smoke:
         self.errors = {}           # kernel -> max abs error at main-path shapes
         self.row_errors = {}       # kernel -> mean row relative L2, where phase 3 reads one
         self.launches = {}         # driven path -> {kernel: launches on it}
+        self.scan_split = {}       # scan kernel -> {its CUDA kernel: mean ms a launch}
 
     # -- helpers ------------------------------------------------------------------
     def phase(self, name, fn):
@@ -620,7 +632,11 @@ class Smoke:
                 ((2, 1000, 4, 32), "model", False),      # S not a multiple of the chunk
                 ((1, 4099, 8, 128), "model", True),
                 ((1, 777, 4, 64), "strong", True),       # the TPU form overflows here
-                ((2, 300, 2, 16), "strong", False))
+                ((2, 300, 2, 16), "strong", False),
+                ((2, 63, 4, 64), "model", True),         # the chunk's boundaries
+                ((1, 64, 4, 64), "strong", True),
+                ((1, 65, 4, 32), "model", False),
+                ((1, 197, 4, 64), "strong", True))
             for dt in (torch.float32, torch.bfloat16)]
         for (b, s, h, k), dt, decay, with_s0 in cases:
             args = self.wkv_inputs(b, s, h, k, dt, decay)
@@ -635,15 +651,22 @@ class Smoke:
             tag = f"B={b} S={s} H={h} K={k} {dt} decay={decay} s0={with_s0}"
             check(torch.equal(y.view(bits), y2.view(bits)) and torch.equal(sf, sf2),
                   f"wkv_scan: two launches differ ({tag})")
-            tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+            tol = ops.BF16_REL if dt == torch.bfloat16 else 1e-4
             ey, es = self.rel(y, ry), self.rel(sf, rs)
             check(bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(sf).all())
                   and ey <= tol and es <= 1e-4,
                   f"wkv_scan beyond its plain version ({tag}): y {ey:.3e} (bound {tol}), "
                   f"s_final {es:.3e} (bound 1e-4)")
+            note = ""
+            if dt == torch.bfloat16:
+                control = self.rel(ops.wkv_plain(*args, s0, bf16_operands=True)[0], ry)
+                note = f" (bf16-operand control {control:.3e}, bound {tol:.0e})"
+                if (b, s, h, k) == main or decay == "strong":
+                    check(control > tol, f"wkv_scan: the bf16-operand control is within "
+                          f"{tol:.0e} of plain ({tag}: {control:.3e}), so the check cannot see it")
             if ((b, s, h, k), dt) == (main, torch.bfloat16):
                 self.record_err("wkv_scan", y.float(), ry.float())
-            print(f"  wkv_scan ok: {tag}, y rel L2 {ey:.3e}, s_final rel L2 {es:.3e}",
+            print(f"  wkv_scan ok: {tag}, y rel L2 {ey:.3e}{note}, s_final rel L2 {es:.3e}",
                   flush=True)
             del args, y, y2, ry, sf, sf2, rs
         self.free()
@@ -675,7 +698,12 @@ class Smoke:
                 ((2, 1040, 4, 64, 64), "model", True),     # the decode's prompt length
                 ((1, 997, 3, 32, 16), "strong", True),     # a prime S, strong decay
                 ((1, 300, 2, 48, 128), "model", False),
-                ((2, 77, 2, 16, 48), "strong", False))
+                ((2, 77, 2, 16, 48), "strong", False),
+                # the chunk's boundaries; 9 heads: a ragged head group; P 80: two slices
+                ((2, 63, 9, 64, 64), "model", True),
+                ((1, 64, 16, 64, 64), "strong", True),
+                ((1, 65, 3, 80, 48), "model", False),
+                ((1, 197, 8, 64, 64), "strong", True))
             for dt in (torch.float32, torch.bfloat16)]
         for (b, s, h, p, n), dt, decay, with_h0 in cases:
             args = self.ssd_inputs(b, s, h, p, n, dt, decay)
@@ -693,18 +721,25 @@ class Smoke:
             ey, eh = self.rel(y, ry), self.rel(hf, rh)
             yf, rf = y.float(), ry.float()
             ok = bool(torch.isfinite(yf).all()) and bool(torch.isfinite(hf).all())
+            note = ""
             if dt == torch.bfloat16:
                 # one bf16 rounding of y: an ulp is at most 2^-7 of |y|; the
                 # floor covers float32 differences of values near zero
                 ulp = 2.0 ** -7 * rf.abs() + 1e-5 * float(rf.abs().max())
-                ok = ok and bool(((yf - rf).abs() <= ulp).all()) and ey <= 1e-2
+                ok = ok and bool(((yf - rf).abs() <= ulp).all()) and ey <= ops.BF16_REL
+                control = self.rel(ops.ssd_plain(*args, h0, bf16_operands=True)[0], ry)
+                note = f" (bf16-operand control {control:.3e}, bound {ops.BF16_REL:.0e})"
+                if (b, s, h, p, n) == main or decay == "strong":
+                    check(control > ops.BF16_REL, f"ssd_scan: the bf16-operand control is "
+                          f"within {ops.BF16_REL:.0e} of plain ({tag}: {control:.3e}), so the "
+                          f"check cannot see it")
             else:
                 ok = ok and ey <= 1e-4
             check(ok and eh <= 1e-4, f"ssd_scan beyond its plain version ({tag}): y {ey:.3e}, "
                                      f"h_final {eh:.3e}")
             if ((b, s, h, p, n), dt) == (main, torch.bfloat16):
                 self.record_err("ssd_scan", yf, rf)
-            print(f"  ssd_scan ok: {tag}, y rel L2 {ey:.3e} (max abs "
+            print(f"  ssd_scan ok: {tag}, y rel L2 {ey:.3e}{note} (max abs "
                   f"{float((yf - rf).abs().max()):.3e}), h_final rel L2 {eh:.3e}", flush=True)
             del args, y, y2, ry, hf, hf2, rh, yf, rf
         self.free()
@@ -1193,6 +1228,7 @@ class Smoke:
               and cfg.num_layers == RWKV_LAYERS and out["n_params"] == RWKV_PARAMS,
               "not full-width rwkv6-1.6b")
         self.check_served(out, gen)
+        self.profile_prefill(out, scan="wkv_scan")
         self.profile_decode_step(out)
         print(f"  protocol_serve_rwkv6: prefill of {WKV_SHAPE['b']} x {WKV_SHAPE['s']} tokens "
               f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {RWKV_DECODE_LEN} -> "
@@ -1347,7 +1383,7 @@ class Smoke:
         # one (32,768 x 32,768) float32 score matrix of 32 heads is 128 GiB
         scores = SSD_SHAPE["s"] ** 2 * cfg.num_heads * 4
         check(peak < 40 * 2**30, f"the served prefill's peak {peak / 2**30:.2f} GiB")
-        self.profile_prefill(out)
+        self.profile_prefill(out, scan="ssd_scan")
         self.profile_decode_step(out)
         print(f"  protocol_serve_zamba2: prefill of {SSD_SHAPE['b']} x {SSD_SHAPE['s']} tokens "
               f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {ZAMBA_DECODE_LEN} -> "
@@ -1361,10 +1397,12 @@ class Smoke:
         del out["server"]
         return out
 
-    def profile_prefill(self, out):
-        """One served prefill (``Model.prefill`` of phase 7e's batch) under
+    def profile_prefill(self, out, scan):
+        """One served prefill (``Model.prefill`` of the phase's batch) under
         torch.profiler: device time, its share of the host time, and the
-        kernels that take most of it."""
+        kernels that take most of it.  The mean device ms a launch of each
+        of the ``scan`` kernel's three CUDA kernels (chunk pass, state
+        pass, output pass) is kept for its phase 9 row."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         model, params, batch = out["model"], out["params"], out["batch"]
@@ -1386,6 +1424,15 @@ class Smoke:
               f"{dev_ms:.1f} ms of device time in {host_ms:.1f} ms", flush=True)
         for e in sorted(events, key=self_dev, reverse=True)[:10]:
             print(f"    {self_dev(e):9.2f} ms  x{e.count:<6d} {e.key[:90]}", flush=True)
+        split = {}
+        for e in events:
+            if any(part in e.key for part in ("_chunk_state<", "state_pass<", "_chunk_out<")):
+                name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+                split[name.removeprefix("void ")] = self_dev(e) / e.count
+        self.scan_split[scan] = split or None
+        print(f"    {scan} by launch (mean ms): "
+              + (", ".join(f"{k} {v:.3f}" for k, v in split.items()) if split
+                 else "not measured (no device time profiled)"), flush=True)
 
     def zamba_decode_vs_prefill(self, out):
         """Decode against the kernel prefill on a float32 copy of the params,
@@ -1696,14 +1743,20 @@ class Smoke:
         call computes the WKV, so the library column is empty.  Bytes: r, k,
         v, w read and y written once (bf16), u read and s_final written
         (float32); operations: 4 K^2 flops a token and head (y = r^T S and
-        the rank-1 state update, 2 K^2 each)."""
+        the rank-1 state update, 2 K^2 each) at the bf16 tensor-core rate,
+        as for swa_attention: the kernel's products run there (its hi/lo
+        split and the chunk form make its own floor higher).  Beside them:
+        the bytes the call holds beyond its outputs (its float32 scratch),
+        and the mean time of each of its three launches in phase 7c's
+        profiled prefill."""
         torch = self.torch
         from repro_torch.kernels.rwkv6_wkv import ops
         b, s, h, k = WKV_SHAPE.values()
         args = self.wkv_inputs(b, s, h, k, torch.bfloat16, seed=3)
         nbytes = 5 * b * s * h * k * 2 + h * k * 4 + b * h * k * k * 4
         return self.row("wkv_scan", lambda: ops.wkv_kernel(*args),
-                        lambda: ops.wkv_plain(*args), None, nbytes, 4 * k * k * b * s * h)
+                        lambda: ops.wkv_plain(*args), None, nbytes, 4 * k * k * b * s * h,
+                        BF16_FLOP_PER_S, scan=True)
 
     def ssd_row(self):
         """ssd_scan at the zamba2 serving prefill's shape (h0 none, as the
@@ -1711,7 +1764,9 @@ class Smoke:
         library column is empty.  Bytes: x read and y written (bf16), Δ
         read (float32), B and C read (bf16), a and d_skip read and h_final
         written (float32); operations: 4 N P flops a token and head (the
-        state update and y = h C, 2 N P each)."""
+        state update and y = h C, 2 N P each) at the bf16 tensor-core rate,
+        as for wkv_scan.  Scratch bytes as there; the launches' times from
+        phase 7e's profiled prefill."""
         torch = self.torch
         from repro_torch.kernels.mamba2_scan import ops
         b, s, h, p, n = SSD_SHAPE.values()
@@ -1719,7 +1774,21 @@ class Smoke:
         nbytes = (2 * b * s * h * p * 2 + b * s * h * 4 + 2 * b * s * n * 2 + 2 * h * 4
                   + b * h * p * n * 4)
         return self.row("ssd_scan", lambda: ops.ssd_kernel(*args),
-                        lambda: ops.ssd_plain(*args), None, nbytes, 4 * n * p * b * s * h)
+                        lambda: ops.ssd_plain(*args), None, nbytes, 4 * n * p * b * s * h,
+                        BF16_FLOP_PER_S, scan=True)
+
+    def held_bytes(self, fn):
+        """The bytes one call of ``fn`` holds on the card beyond what it
+        returns: its peak allocation less the allocation once it returned
+        (the caching allocator's counts)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        held = torch.cuda.max_memory_allocated() - torch.cuda.memory_allocated()
+        del out
+        return held
 
     def flex_band(self, qt, kt, vt, window):
         """One ``flex_attention`` call over the band only (a sliding-window
@@ -1792,8 +1861,13 @@ class Smoke:
             self.free()
         return rows
 
-    def row(self, name, kern, plain, lib, nbytes, flops, flop_rate=FP32_FLOP_PER_S):
+    def row(self, name, kern, plain, lib, nbytes, flops, flop_rate=FP32_FLOP_PER_S,
+            scan=False):
         ms = self.time_ms(kern, 10)
+        extra = {}
+        if scan:       # the chunk-parallel scans: scratch, and their three launches in 7c/7e
+            extra = {"scratch_bytes": self.held_bytes(kern),
+                     "launch_ms": self.scan_split.get(name)}
         plain_ms = self.time_ms(plain, 2)
         lib_ms = self.time_ms(lib, 2) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1808,10 +1882,14 @@ class Smoke:
                **({"row_rel_l2": self.row_errors[name]} if name in self.row_errors else {}),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": lib_ms}
+               "library_ms": lib_ms, **extra}
         print(f"  {name}: {ms:.3f} ms (bound {row['bound_ms']:.3f} ms by "
               f"{row['bound_by']}, {row['bound_ms'] / ms:.1%} of it), plain "
-              f"{plain_ms:.3f} ms, library {lib_ms}", flush=True)
+              f"{plain_ms:.3f} ms, library {lib_ms}"
+              + (f", scratch {extra['scratch_bytes']} bytes held, by launch "
+                 + (", ".join(f"{k} {v:.3f} ms" for k, v in extra["launch_ms"].items())
+                    if extra["launch_ms"] else "not measured (no device time profiled)")
+                 if extra else ""), flush=True)
         self.free()
         return row
 

@@ -9,294 +9,444 @@
 //   y_t = h_t C_t + D_h x_t
 // B and C are shared across heads (ngroups = 1).  In chunks of kC tokens,
 // with cs the inclusive cumulative sum of a_h dt over the chunk:
-//   y_t = sum_{s <= t} (C_t . B_s) exp(cs_t - cs_s) dt_s x_s
-//         + exp(cs_t) h_prev C_t + D_h x_t
-//   h   = exp(cs_end) h_prev + sum_s exp(cs_end - cs_s) dt_s x_s B_s^T
+//   y_t = sum_{s <= t} ((C_t . B_s) exp(cs_t - cs_s) dt_s) x_s
+//         + exp(cs_t) (C_t . h_prev) + D_h x_t
+//   h   = exp(cs_end) h_prev + sum_s (x_s exp(cs_end - cs_s) dt_s) B_s^T
 // Every exponent is <= 0 on the diagonal and below; above it the band is
 // selected to 0 before any product, so strong decay gives no inf * 0.
 //
 // x, b, c (model dtype: bfloat16 or float32) in the model's layout, x
 // (B, S, H, P) and b, c (B, S, N); dt (B, S, H), a (H,), d_skip (H,), h0
 // (B, H, P, N) float32 (h0 may be null: zeros); y (B, S, H, P) in x's type
-// and h_final (B, H, P, N) float32.  Everything is computed in float32.
-// Any S (the ragged last chunk is padded with zero x, B, C and dt, which
-// adds nothing to y or h), P a multiple of 16, N a multiple of 16 up to 128.
+// and h_final (B, H, P, N) float32.  Everything is computed to float32
+// accuracy.  Any S (the ragged last chunk is padded with zero x, B, C and
+// dt, which adds nothing to y or h), P a multiple of 16, N a multiple of 16
+// up to 128.
 //
-// Bound on an H100: operations.  At zamba2-1.2b's served prefill (B 1,
-// S 32,768, H 64, P 64, N 64, bf16) the recurrence does 4 N P flops per
-// token and head (34.4 GFLOP: 0.513 ms at the 67 TFLOP/s fp32 rate) against
-// about 555 MB of x, y, dt, B, C and the states (0.166 ms at 3.35 TB/s).
+// Bound on an H100: bytes.  At zamba2-1.2b's served prefill (B 1, S 32,768,
+// H 64, P 64, N 64, bf16) the kernel moves about 555 MB of x, y, dt, B, C
+// and the states (0.166 ms at 3.35 TB/s); the recurrence's 4 N P flops per
+// token and head (34.4 GFLOP) take 0.035 ms at the bf16 tensor-core rate,
+// where the products run (the hi/lo split's three passes and the chunk
+// form raise the kernel's own floor above that).
 //
-// Design (simple first): one block of 256 threads per (batch * head, 16 of
-// the P columns), so the served shape runs 64 x 4 = 256 blocks, two per SM.
-// h's P rows are independent, so each block carries its 16 x N slice of h
-// in shared memory (double-buffered) and walks the sequence in chunks of
-// 32 tokens, one warp's lanes:
-//   1. the chunk's B and C (all N columns), dt and its 16 columns of x are
-//      staged in shared memory as float32 from registers that were loaded
-//      while the previous chunk computed;
-//   2. every warp scans the chunk's a dt with shuffles (lane = token), so
-//      cs is in registers everywhere without another barrier;
-//   3. thread (ti, si) forms the band M[t][s] = (C_t . B_s) exp(cs_t - cs_s)
-//      for t in {ti, ti + 16}, s in {si, si + 16} (float4 rows of C and B),
-//      0 above the diagonal;
-//   4. thread (t, j) forms y for tokens t and t + 16 of column j (the band
-//      against dt x, exp(cs_t) C_t against the old h, D x); meanwhile each
-//      thread updates its float4s of h into the other buffer.
-// Three block barriers a chunk.  No atomics and a fixed order everywhere:
-// two launches give the same bits.  Sharing C B^T across heads (this design
-// recomputes it for every head and slice), wgmma, TMA and a chunk-parallel
-// scan are later work.
+// Design: a chunk-parallel scan in three launches, chunks of kC = 64 tokens;
+// a block of 128 threads takes one chunk of a group of kHG = 8 heads.
+//   1. ssd_chunk_state, grid (chunk, batch * head group): per head, warp 0
+//      scans a dt over the chunk with shuffles (the next head's dt loading);
+//      the chunk's change of the state,
+//      dh = sum_s (x_s exp(cs_end - cs_s) dt_s) B_s^T, goes to a
+//      float32 scratch (B, H, n_chunks, P, N) and its decay exp(cs_end) to a
+//      second one.  The blocks of head group 0 also compute the chunk's
+//      C . B^T, once for all heads, into a third (B, n_chunks, kC, kC).
+//   2. chunk_scan::state_pass, grid (state elements, batch * head): the
+//      state each chunk starts from, h <- exp(cs_end) h + dh over the chunks,
+//      in place of dh; h0 seeds it, the last value is h_final.
+//   3. ssd_chunk_out, grid (chunk, batch * head group): warp w owns the
+//      chunk's tokens 16 w .. 16 w + 15 and keeps its rows of C . B^T in
+//      registers for all the group's heads; per head it forms the band
+//      M'[t][s] = (C.B^T)[t][s] exp(cs_t - cs_s) dt_s (s <= t) in the layout
+//      of an A fragment, and y = exp(cs_t) (C . h_in) + M' . x + D x, with
+//      the head's h_in staged in shared memory by cp.async.
+// The chunk products (C . B^T, dh, C . h_in, M' . x) run on the tensor cores
+// as mma.sync m16n8k16 in bf16 with float32 accumulators.  A float32 operand
+// (M', the weighted x of dh, the state) is split into a bf16 hi and lo term
+// and the product takes hi.hi + hi.lo + lo.hi, so it keeps float32 accuracy
+// (the products of the TPU kernel are float32); x, B and C of the bf16
+// model are exact in one term, and so C . B^T is one exact pass.  Loads are
+// 16 bytes a thread, and the next head's x is in flight while the block
+// computes on the current one.  The chunks run in parallel: 4,096 blocks at
+// the served shape, where the simple design's 256 blocks each walked the
+// whole sequence and recomputed C . B^T for every head.  The scratch is
+// 4 P N bytes a chunk and head (537 MB at the served shape), written once,
+// read and written by the state pass and read once.  P is taken in slices
+// of up to 64 columns.
+// No atomics and a fixed order everywhere: two launches give the same bits.
 //
 // The entry point returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "chunk_scan.cuh"
 
 namespace {
 
-constexpr int kC = 32;          // tokens per chunk: one warp's lanes
-constexpr int kPB = 16;         // P columns per block
-constexpr int kThreads = 256;
+using namespace chunk_scan;
+
+constexpr int kC = 64;          // tokens per chunk
+constexpr int kThreads = 128;   // warp w: tokens 16 w .. 16 w + 15
+constexpr int kHG = 8;          // heads a block
+constexpr int kPS = 64;         // columns of P a slice
+constexpr int kLX = kPS + 4;    // row stride of the x slice: read down a column
 constexpr int kMaxN = 128;
-constexpr int kLM = 48;         // row stride of M: float4 rows, rows t and t + 1 16 banks apart
 constexpr unsigned kFull = 0xffffffffu;
 
-using bf16 = __nv_bfloat16;
+// Warp 0: dt of head h over the chunk's tokens (lanes l and l + 32); load()
+// issues the loads (so they fly while the previous head computes), scan()
+// takes the inclusive cumulative sum of a_h dt into (c0, c1).
+struct ChunkDt {
+  float d0, d1;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
-template <typename T> __device__ __forceinline__ T zero_of();
-template <> __device__ __forceinline__ float zero_of<float>() { return 0.f; }
-template <> __device__ __forceinline__ bf16 zero_of<bf16>() { return __float2bfloat16(0.f); }
+  __device__ __forceinline__ void load(const float* __restrict__ dt, int b, int S, int H, int t0,
+                                       int h, int lane) {
+    const long long at = ((long long)b * S + t0 + lane) * H + h;
+    d0 = t0 + lane < S ? dt[at] : 0.f;
+    d1 = t0 + lane + 32 < S ? dt[at + 32LL * H] : 0.f;
+  }
+  __device__ __forceinline__ void scan(float ah, int lane, float& c0, float& c1) const {
+    c0 = ah * d0;
+    c1 = ah * d1;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float u0 = __shfl_up_sync(kFull, c0, o), u1 = __shfl_up_sync(kFull, c1, o);
+      if (lane >= o) {
+        c0 += u0;
+        c1 += u1;
+      }
+    }
+    c1 += __shfl_sync(kFull, c0, 31);
+  }
+};
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-template <int N>
-constexpr size_t smem_floats() {
-  // B, C, two buffers of h, M, x dt, x, x dt exp(cs_end - cs), dt, exp(cs)
-  return (size_t)(2 * kC + 2 * kPB) * (N + 4) + kC * kLM + 3 * kC * kPB + 2 * kC;
+// the x of head h, columns p0 .. p0 + width of the chunk's tokens
+template <typename T>
+__device__ __forceinline__ const T* x_rows(const T* x, int b, int S, int H, int P, int t0, int h,
+                                           int p0) {
+  return x + (((long long)b * S + t0) * H + h) * P + p0;
 }
 
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads, 2)
-ssd_fwd(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
-        const T* __restrict__ bm, const T* __restrict__ cm, const float* __restrict__ dskip,
-        const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ hf,
-        int S, int H, int P) {
-  constexpr int LN = N + 4;                    // row stride of the n-major tiles: float4
-                                               // rows, 8 consecutive rows on 32 banks
-  constexpr int LN4 = LN / 4, LM4 = kLM / 4;
-  constexpr int kPerBC = kC * N / kThreads;    // B and C elements a thread stages
-  constexpr int kPerX = kC * kPB / kThreads;   // x elements a thread stages (2)
-  extern __shared__ float4 smem4[];
-  float* Bs = reinterpret_cast<float*>(smem4);  // [kC][LN] B
-  float* Cs = Bs + kC * LN;                     // [kC][LN] C
-  float* Hs = Cs + kC * LN;                     // [2][kPB][LN] h[p0 + j][n]
-  float* Ms = Hs + 2 * kPB * LN;                // [kC][kLM] the band
-  float* Xs = Ms + kC * kLM;                    // [kC][kPB] dt x
-  float* Xr = Xs + kC * kPB;                    // [kC][kPB] x
-  float* Xw = Xr + kC * kPB;                    // [kC][kPB] exp(cs_end - cs) dt x
-  float* Dt = Xw + kC * kPB;                    // [kC] dt
-  float* Ec = Dt + kC;                          // [kC] exp(cs)
-  const float4* B4 = reinterpret_cast<const float4*>(Bs);
-  const float4* C4 = reinterpret_cast<const float4*>(Cs);
-  const float4* M4 = reinterpret_cast<const float4*>(Ms);
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_state(const T* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ a, const T* __restrict__ bm, const T* __restrict__ cm,
+                float* __restrict__ dh, float* __restrict__ decay, float* __restrict__ cb,
+                int S, int H, int P, int nc) {
+  constexpr int LB = N + 4;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ float smem[];
+  float* Bs = smem;              // [kC][LB] B
+  float* Cs = Bs + kC * LB;      // [kC][LB] C (head group 0)
+  float* Xs = Cs + kC * LB;      // [kC][kLX] a slice of x
+  float* Ws = Xs + kC * kLX;     // [kC] exp(cs_end - cs) dt
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int p0 = blockIdx.y * kPB;
-  const float ah = a[h], dh = dskip[h];
-  const long long xrow = (long long)H * P;      // x and y: stride between tokens
-  const long long xbase = (long long)b * S * xrow + (long long)h * P + p0;
-  const long long dbase = (long long)b * S * H + h;
-  const long long nbase = (long long)b * S * N;
-  const long long hbase = ((long long)bh * P + p0) * N;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, qd = lane & 3;
+  const int nhg = (H + kHG - 1) / kHG;
+  const int chunk = blockIdx.x, b = blockIdx.y / nhg, hg = blockIdx.y - b * nhg;
+  const int t0 = chunk * kC;
+  const int h_end = min(H, (hg + 1) * kHG);
+  const long long nbase = ((long long)b * S + t0) * N;
 
-  for (int e = tid; e < kPB * N; e += kThreads) {
-    const int j = e / N, n = e - j * N;
-    Hs[j * LN + n] = h0 != nullptr ? h0[hbase + e] : 0.f;
+  Tile<T, kC, kPS, kThreads, false> tx;  // x of the next head, in flight
+  tx.load(x_rows(x, b, S, H, P, t0, hg * kHG, 0), (long long)H * P, S - t0, min(kPS, P));
+  ChunkDt cd;                            // its dt (warp 0)
+  if (warp == 0) cd.load(dt, b, S, H, t0, hg * kHG, lane);
+  {
+    Tile<T, kC, N, kThreads, false> tb;
+    tb.load(bm + nbase, N, S - t0, N);
+    tb.store_rows(Bs, LB, N);
+  }
+  if (hg == 0) {
+    // C . B^T of the chunk, once for all heads: warp w's rows, the blocks
+    // on and below the diagonal
+    {
+      Tile<T, kC, N, kThreads, false> tc;
+      tc.load(cm + nbase, N, S - t0, N);
+      tc.store_rows(Cs, LB, N);
+    }
+    __syncthreads();
+    float* out = cb + ((long long)b * nc + chunk) * kC * kC;
+#pragma unroll
+    for (int kb = 0; kb < kC / 16; ++kb) {
+      if (kb <= warp) {
+        float acc[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < N / 16; ++ks) {
+          FragA fa;
+          frag_a_rows<kF32>(fa, Cs + 16 * warp * LB + 16 * ks, LB, lane);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            FragB fb;
+            frag_b_rows<kF32>(fb, Bs + (16 * kb + 8 * nt) * LB + 16 * ks, LB, lane);
+            mma_split<kF32, kF32>(acc[nt], fa, fb);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          float* o = out + (16 * warp + gr) * kC + 16 * kb + 8 * nt + 2 * qd;
+          store2(o, acc[nt][0], acc[nt][1]);
+          store2(o + 8 * kC, acc[nt][2], acc[nt][3]);
+        }
+      }
+    }
   }
 
-  // the next chunk's inputs, raw: their loads fly while the current chunk
-  // computes, and are converted when staged
-  T bv[kPerBC], cv[kPerBC], xv[kPerX];
-  float dv[kPerX];
-  auto fetch = [&](int t0) {
-#pragma unroll
-    for (int i = 0; i < kPerBC; ++i) {
-      const int idx = tid + i * kThreads, t = idx / N, n = idx - t * N;
-      const bool ok = t0 + t < S;
-      const long long off = nbase + (long long)(t0 + t) * N + n;
-      bv[i] = ok ? bm[off] : zero_of<T>();
-      cv[i] = ok ? cm[off] : zero_of<T>();
+  for (int h = hg * kHG; h < h_end; ++h) {
+    const long long bhh = (long long)b * H + h;
+    __syncthreads();  // B is staged; the previous head's Xs and Ws are read
+    if (warp == 0) {
+      float c0, c1;
+      cd.scan(a[h], lane, c0, c1);
+      const float end = __shfl_sync(kFull, c1, 31);
+      Ws[lane] = expf(end - c0) * cd.d0;
+      Ws[lane + 32] = expf(end - c1) * cd.d1;
+      if (lane == 0) decay[bhh * nc + chunk] = expf(end);
+      if (h + 1 < h_end) cd.load(dt, b, S, H, t0, h + 1, lane);
     }
+    for (int p0 = 0; p0 < P; p0 += kPS) {
+      const int pw = min(kPS, P - p0);
+      if (p0 > 0) {
+        __syncthreads();
+        tx.load(x_rows(x, b, S, H, P, t0, h, p0), (long long)H * P, S - t0, pw);
+      }
+      tx.store_rows(Xs, kLX, pw);
+      // the next head's first slice flies while this one computes
+      if (p0 + kPS >= P && h + 1 < h_end)
+        tx.load(x_rows(x, b, S, H, P, t0, h + 1, 0), (long long)H * P, S - t0, min(kPS, P));
+      __syncthreads();
+      // dh[p][n] = sum_s (x[s][p] W[s]) B[s][n]; warp w takes the row tile w
+      if (16 * warp < pw) {
+        float acc[N / 8][4] = {};
 #pragma unroll
-    for (int i = 0; i < kPerX; ++i) {
-      const int idx = tid + i * kThreads, t = idx >> 4, j = idx & 15;
-      const bool ok = t0 + t < S;
-      xv[i] = ok ? x[xbase + (long long)(t0 + t) * xrow + j] : zero_of<T>();
-      dv[i] = ok ? dt[dbase + (long long)(t0 + t) * H] : 0.f;
+        for (int ks = 0; ks < kC / 16; ++ks) {
+          FragA fa;
+          frag_a<true>(fa, lane, [&](int rr, int cc) {
+            const int s = 16 * ks + cc;
+            return Xs[s * kLX + 16 * warp + rr] * Ws[s];
+          });
+#pragma unroll
+          for (int nt = 0; nt < N / 8; ++nt) {
+            FragB fb;
+            frag_b<kF32>(fb, lane, [&](int kk, int nn) { return Bs[(16 * ks + kk) * LB + 8 * nt + nn]; });
+            mma_split<true, kF32>(acc[nt], fa, fb);
+          }
+        }
+        float* o = dh + (bhh * nc + chunk) * P * N + (long long)(p0 + 16 * warp + gr) * N + 2 * qd;
+#pragma unroll
+        for (int nt = 0; nt < N / 8; ++nt) {
+          store2(o + 8 * nt, acc[nt][0], acc[nt][1]);
+          store2(o + 8 * nt + 8 * N, acc[nt][2], acc[nt][3]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 4)
+ssd_chunk_out(const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ a,
+              const T* __restrict__ cm, const float* __restrict__ dskip,
+              const float* __restrict__ h_in, const float* __restrict__ cb, T* __restrict__ y,
+              int S, int H, int P, int nc) {
+  constexpr int LC = N + 8;  // rows read along N as float2: conflict-free
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ float smem[];
+  float* Cs = smem;              // [kC][LC] C
+  float* Xs = Cs + kC * LC;      // [kC][kLX] a slice of x
+  float* Ds = Xs + kC * kLX;     // [kC] dt
+  float* Gs = Ds + kC;           // [kC] cs
+  float* Es = Gs + kC;           // [kC] exp(cs)
+  float* Hs = Es + kC;           // [kPS][LC] h_in of the head, a slice of P
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gr = lane >> 2, qd = lane & 3;
+  const int nhg = (H + kHG - 1) / kHG;
+  const int chunk = blockIdx.x, b = blockIdx.y / nhg, hg = blockIdx.y - b * nhg;
+  const int t0 = chunk * kC;
+  const int h_end = min(H, (hg + 1) * kHG);
+  const int r0 = 16 * warp + gr;  // this lane's rows: r0 and r0 + 8
+  // rows p of a head's h_in into Hs[p][n] by cp.async (waited for with the
+  // staging of x)
+  auto stage_state = [&](float* dst, const float* src, int rows) {
+    for (int e = tid; e < rows * (N / 4); e += kThreads) {
+      const int p = e / (N / 4), q = e - p * (N / 4);
+      cp_async16(dst + p * LC + 4 * q, src + (long long)p * N + 4 * q);
     }
   };
 
-  fetch(0);
-  int cur = 0;
-  for (int t0 = 0; t0 < S; t0 += kC) {
-    // 1. stage the chunk (tokens past S are zeros: they add nothing)
+  Tile<T, kC, kPS, kThreads, false> tx;  // x of the next head, in flight
+  tx.load(x_rows(x, b, S, H, P, t0, hg * kHG, 0), (long long)H * P, S - t0, min(kPS, P));
+  ChunkDt cd;                            // its dt (warp 0)
+  if (warp == 0) cd.load(dt, b, S, H, t0, hg * kHG, lane);
+  {
+    Tile<T, kC, N, kThreads, false> tc;
+    tc.load(cm + ((long long)b * S + t0) * N, N, S - t0, N);
+    tc.store_rows(Cs, LC, N);
+  }
+  // this warp's rows of C . B^T, blocks kb <= warp, in the C layout
+  float cbr[kC / 16][2][4] = {};
+  {
+    const float* src = cb + ((long long)b * nc + chunk) * kC * kC + r0 * kC + 2 * qd;
 #pragma unroll
-    for (int i = 0; i < kPerBC; ++i) {
-      const int idx = tid + i * kThreads, t = idx / N, n = idx - t * N;
-      Bs[t * LN + n] = to_f(bv[i]);
-      Cs[t * LN + n] = to_f(cv[i]);
-    }
+    for (int kb = 0; kb < kC / 16; ++kb) {
+      if (kb <= warp) {
 #pragma unroll
-    for (int i = 0; i < kPerX; ++i) {
-      const int idx = tid + i * kThreads;
-      const float xf = to_f(xv[i]);
-      Xr[idx] = xf;
-      Xs[idx] = xf * dv[i];
-      if ((idx & 15) == 0) Dt[idx >> 4] = dv[i];
-    }
-    __syncthreads();
-    if (t0 + kC < S) fetch(t0 + kC);
-
-    // 2. cs, inclusive, by every warp (lane = token); exp(cs) and the
-    //    weights exp(cs_end - cs_s) of the state update
-    float cs = ah * Dt[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float u = __shfl_up_sync(kFull, cs, o);
-      if (lane >= o) cs += u;
-    }
-    const float cend = __shfl_sync(kFull, cs, 31);
-    const float eend = expf(cend);
-    const float wd = expf(cend - cs);
-    if (tid < kC) Ec[tid] = expf(cs);
-#pragma unroll
-    for (int i = 0; i < kPerX; ++i) {
-      const int idx = tid + i * kThreads;
-      Xw[idx] = Xs[idx] * __shfl_sync(kFull, wd, idx >> 4);
-    }
-
-    // 3. the band, rows {ti, ti + 16} x columns {si, si + 16}: (ti + 16, si)
-    //    is always on or below the diagonal, (ti, si + 16) never, the other
-    //    two when ti >= si.  Selected before any product with exp.
-    {
-      const int ti = tid >> 4, si = tid & 15;
-      float m00 = 0.f, m10 = 0.f, m11 = 0.f;
-#pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 c0 = C4[ti * LN4 + q], c1 = C4[(ti + 16) * LN4 + q];
-        const float4 b0 = B4[si * LN4 + q], b1 = B4[(si + 16) * LN4 + q];
-        m00 = dot4(c0, b0, m00);
-        m10 = dot4(c1, b0, m10);
-        m11 = dot4(c1, b1, m11);
-      }
-      const float ct0 = __shfl_sync(kFull, cs, ti), ct1 = __shfl_sync(kFull, cs, ti + 16);
-      const float cs0 = __shfl_sync(kFull, cs, si), cs1 = __shfl_sync(kFull, cs, si + 16);
-      const bool lower = ti >= si;
-      Ms[ti * kLM + si] = lower ? m00 * expf(ct0 - cs0) : 0.f;
-      Ms[ti * kLM + si + 16] = 0.f;
-      Ms[(ti + 16) * kLM + si] = m10 * expf(ct1 - cs0);
-      Ms[(ti + 16) * kLM + si + 16] = lower ? m11 * expf(ct1 - cs1) : 0.f;
-    }
-    __syncthreads();
-
-    // 4. y for tokens t, t + 16 of column j; h into the other buffer
-    {
-      const int t = tid >> 4, j = tid & 15;
-      const float* Hc = Hs + cur * kPB * LN;
-      const float4* H4 = reinterpret_cast<const float4*>(Hc);
-      float y0 = 0.f, y1 = 0.f;
-#pragma unroll
-      for (int q = 0; q < kC / 4; ++q) {
-        const float4 m0 = M4[t * LM4 + q], m1 = M4[(t + 16) * LM4 + q];
-        const float x0 = Xs[(4 * q) * kPB + j], x1 = Xs[(4 * q + 1) * kPB + j];
-        const float x2 = Xs[(4 * q + 2) * kPB + j], x3 = Xs[(4 * q + 3) * kPB + j];
-        y0 = fmaf(m0.x, x0, y0); y0 = fmaf(m0.y, x1, y0);
-        y0 = fmaf(m0.z, x2, y0); y0 = fmaf(m0.w, x3, y0);
-        y1 = fmaf(m1.x, x0, y1); y1 = fmaf(m1.y, x1, y1);
-        y1 = fmaf(m1.z, x2, y1); y1 = fmaf(m1.w, x3, y1);
-      }
-      float i0 = 0.f, i1 = 0.f;
-#pragma unroll
-      for (int q = 0; q < N / 4; ++q) {
-        const float4 hv = H4[j * LN4 + q];
-        i0 = dot4(C4[t * LN4 + q], hv, i0);
-        i1 = dot4(C4[(t + 16) * LN4 + q], hv, i1);
-      }
-      y0 += Ec[t] * i0;
-      y1 += Ec[t + 16] * i1;
-      y0 += Xr[t * kPB + j] * dh;
-      y1 += Xr[(t + 16) * kPB + j] * dh;
-      if (t0 + t < S) store(&y[xbase + (long long)(t0 + t) * xrow + j], y0);
-      if (t0 + t + 16 < S) store(&y[xbase + (long long)(t0 + t + 16) * xrow + j], y1);
-
-      float4* Hn = reinterpret_cast<float4*>(Hs + (cur ^ 1) * kPB * LN);
-      for (int e = tid; e < kPB * N / 4; e += kThreads) {
-        const int jj = e / (N / 4), q = e - jj * (N / 4);
-        float4 hv = H4[jj * LN4 + q];
-        hv.x *= eend; hv.y *= eend; hv.z *= eend; hv.w *= eend;
-#pragma unroll 8
-        for (int s = 0; s < kC; ++s) {
-          const float xw = Xw[s * kPB + jj];
-          const float4 bb = B4[s * LN4 + q];
-          hv.x = fmaf(xw, bb.x, hv.x);
-          hv.y = fmaf(xw, bb.y, hv.y);
-          hv.z = fmaf(xw, bb.z, hv.z);
-          hv.w = fmaf(xw, bb.w, hv.w);
+        for (int nt = 0; nt < 2; ++nt) {
+          const float2 u0 = *reinterpret_cast<const float2*>(src + 16 * kb + 8 * nt);
+          const float2 u1 = *reinterpret_cast<const float2*>(src + 16 * kb + 8 * nt + 8 * kC);
+          cbr[kb][nt][0] = u0.x;
+          cbr[kb][nt][1] = u0.y;
+          cbr[kb][nt][2] = u1.x;
+          cbr[kb][nt][3] = u1.y;
         }
-        Hn[jj * LN4 + q] = hv;
       }
     }
-    cur ^= 1;
-    __syncthreads();  // the next chunk overwrites the tiles and reads the new h
   }
 
-  const float* Hc = Hs + cur * kPB * LN;
-  for (int e = tid; e < kPB * N; e += kThreads) {
-    const int j = e / N, n = e - j * N;
-    hf[hbase + e] = Hc[j * LN + n];
+  for (int h = hg * kHG; h < h_end; ++h) {
+    const long long bhh = (long long)b * H + h;
+    const float* hp = h_in + (bhh * nc + chunk) * P * N;
+    __syncthreads();  // C is staged; the previous head's Xs, Ds, Gs, Es, Hs are read
+    stage_state(Hs, hp, min(kPS, P));
+    if (warp == 0) {
+      float c0, c1;
+      cd.scan(a[h], lane, c0, c1);
+      Ds[lane] = cd.d0;
+      Ds[lane + 32] = cd.d1;
+      Gs[lane] = c0;
+      Gs[lane + 32] = c1;
+      Es[lane] = expf(c0);
+      Es[lane + 32] = expf(c1);
+      if (h + 1 < h_end) cd.load(dt, b, S, H, t0, h + 1, lane);
+    }
+    const float dsk = dskip[h];
+    tx.store_rows(Xs, kLX, min(kPS, P));
+    if (P <= kPS && h + 1 < h_end)  // the next head's x flies while this one computes
+      tx.load(x_rows(x, b, S, H, P, t0, h + 1, 0), (long long)H * P, S - t0, P);
+    cp_async_wait_all();
+    __syncthreads();
+
+    for (int p0 = 0; p0 < P; p0 += kPS) {
+      const int pw = min(kPS, P - p0);
+      if (p0 > 0) {
+        __syncthreads();
+        stage_state(Hs, hp + (long long)p0 * N, pw);
+        tx.load(x_rows(x, b, S, H, P, t0, h, p0), (long long)H * P, S - t0, pw);
+        tx.store_rows(Xs, kLX, pw);
+        if (p0 + kPS >= P && h + 1 < h_end)
+          tx.load(x_rows(x, b, S, H, P, t0, h + 1, 0), (long long)H * P, S - t0, kPS);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      // the incoming state's share C . h_in^T, scaled by exp(cs_t)
+      float acc[kPS / 8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < N / 16; ++ks) {
+        FragA fa;
+        frag_a_rows<kF32>(fa, Cs + 16 * warp * LC + 16 * ks, LC, lane);
+#pragma unroll
+        for (int nt = 0; nt < kPS / 8; ++nt) {
+          if (8 * nt < pw) {
+            FragB fb;
+            frag_b_rows<true>(fb, Hs + (8 * nt) * LC + 16 * ks, LC, lane);
+            mma_split<kF32, true>(acc[nt], fa, fb);
+          }
+        }
+      }
+      const float e0 = Es[r0], e1 = Es[r0 + 8];
+#pragma unroll
+      for (int nt = 0; nt < kPS / 8; ++nt) {
+        acc[nt][0] *= e0;
+        acc[nt][1] *= e0;
+        acc[nt][2] *= e1;
+        acc[nt][3] *= e1;
+      }
+      // the band M' . x, M'[t][s] = (C.B^T)[t][s] exp(cs_t - cs_s) dt_s (s <= t)
+      // as A fragments from the C . B^T registers
+#pragma unroll
+      for (int kb = 0; kb < kC / 16; ++kb) {
+        if (kb <= warp) {
+          float m[2][4];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const int t = r0 + 8 * (q >> 1), s = 16 * kb + 8 * nt + 2 * qd + (q & 1);
+              m[nt][q] = s <= t ? (cbr[kb][nt][q] * __expf(Gs[t] - Gs[s])) * Ds[s] : 0.f;
+            }
+          }
+          FragA mf;
+          frag_a_from_c<true>(mf, m[0], m[1]);
+#pragma unroll
+          for (int nt = 0; nt < kPS / 8; ++nt) {
+            if (8 * nt < pw) {
+              FragB fb;
+              frag_b<kF32>(fb, lane, [&](int kk, int nn) {
+                return Xs[(16 * kb + kk) * kLX + 8 * nt + nn];
+              });
+              mma_split<true, kF32>(acc[nt], mf, fb);
+            }
+          }
+        }
+      }
+      // + D x, in x's type
+#pragma unroll
+      for (int nt = 0; nt < kPS / 8; ++nt) {
+        if (8 * nt < pw) {
+          const int col = 8 * nt + 2 * qd;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int t = r0 + 8 * half;
+            if (t0 + t < S) {
+              const float* xr = Xs + t * kLX + col;
+              store2(y + (((long long)b * S + t0 + t) * H + h) * P + p0 + col,
+                     acc[nt][2 * half] + xr[0] * dsk, acc[nt][2 * half + 1] + xr[1] * dsk);
+            }
+          }
+        }
+      }
+    }
   }
+}
+
+template <int N>
+constexpr size_t state_smem() {
+  return sizeof(float) * (size_t)(2 * kC * (N + 4) + kC * kLX + kC);
+}
+template <int N>
+constexpr size_t out_smem() {
+  return sizeof(float) * (size_t)((kC + kPS) * (N + 8) + kC * kLX + 3 * kC);
 }
 
 template <typename T, int N>
 int launch_n(const void* x, const void* dt, const void* a, const void* b, const void* c,
-             const void* dskip, const void* h0, void* y, void* hf, int B, int S, int H, int P,
-             cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<N>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      ssd_fwd<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+             const void* dskip, const void* h0, void* y, void* hf, void* dh, void* decay,
+             void* cb, int B, int S, int H, int P, cudaStream_t stream) {
+  const int nc = (S + kC - 1) / kC;
+  cudaError_t err = cudaFuncSetAttribute(ssd_chunk_state<T, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)state_smem<N>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_chunk_out<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)out_smem<N>());
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, P / kPB);
-  ssd_fwd<T, N><<<grid, kThreads, smem, stream>>>(
-      (const T*)x, (const float*)dt, (const float*)a, (const T*)b, (const T*)c,
-      (const float*)dskip, (const float*)h0, (T*)y, (float*)hf, S, H, P);
+  const dim3 grid(nc, B * ((H + kHG - 1) / kHG));
+  ssd_chunk_state<T, N><<<grid, kThreads, state_smem<N>(), stream>>>(
+      (const T*)x, (const float*)dt, (const float*)a, (const T*)b, (const T*)c, (float*)dh,
+      (float*)decay, (float*)cb, S, H, P, nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = launch_state_pass<false, false>((float*)dh, (const float*)decay, (const float*)h0,
+                                        (float*)hf, B * H, nc, P, N, stream);
+  if (err != cudaSuccess) return (int)err;
+  ssd_chunk_out<T, N><<<grid, kThreads, out_smem<N>(), stream>>>(
+      (const T*)x, (const float*)dt, (const float*)a, (const T*)c, (const float*)dskip,
+      (const float*)dh, (const float*)cb, (T*)y, S, H, P, nc);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* dt, const void* a, const void* b, const void* c,
-           const void* dskip, const void* h0, void* y, void* hf, int B, int S, int H, int P,
-           int N, cudaStream_t st) {
+           const void* dskip, const void* h0, void* y, void* hf, void* dh, void* decay,
+           void* cb, int B, int S, int H, int P, int N, cudaStream_t st) {
   switch (N) {
-    case 16: return launch_n<T, 16>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
-    case 32: return launch_n<T, 32>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
-    case 48: return launch_n<T, 48>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
-    case 64: return launch_n<T, 64>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
-    case 80: return launch_n<T, 80>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
-    case 96: return launch_n<T, 96>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
-    case 112: return launch_n<T, 112>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
-    case 128: return launch_n<T, 128>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, st);
+    case 16: return launch_n<T, 16>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
+    case 32: return launch_n<T, 32>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
+    case 48: return launch_n<T, 48>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
+    case 64: return launch_n<T, 64>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
+    case 80: return launch_n<T, 80>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
+    case 96: return launch_n<T, 96>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
+    case 112: return launch_n<T, 112>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
+    case 128: return launch_n<T, 128>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -306,17 +456,21 @@ int launch(const void* x, const void* dt, const void* a, const void* b, const vo
 extern "C" {
 
 // dtype: 0 float32, 1 bfloat16 (x, b, c and y); dt, a, d_skip, h0 and
-// h_final float32.  h0 may be null.  Tensors contiguous, pointers 16-byte
-// aligned.
+// h_final float32.  h0 may be null.  dh is a float32 scratch of
+// B * H * ceil(S / 64) * P * N values, decay one of B * H * ceil(S / 64),
+// cb one of B * ceil(S / 64) * 64 * 64.  Tensors contiguous, pointers
+// 16-byte aligned.
 int ssd_scan_fwd(const void* x, const void* dt, const void* a, const void* b, const void* c,
-                 const void* dskip, const void* h0, void* y, void* hf, int B, int S, int H,
-                 int P, int N, int dtype, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || P < kPB || P % kPB || P / kPB > 65535 || N < 16 ||
-      N > kMaxN || N % 16 || (long long)B * H > 0x7fffffff)
+                 const void* dskip, const void* h0, void* y, void* hf, void* dh, void* decay,
+                 void* cb, int B, int S, int H, int P, int N, int dtype, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || P < 16 || P % 16 || N < 16 || N > kMaxN || N % 16 ||
+      (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, N, st);
-  if (dtype == 1) return launch<bf16>(x, dt, a, b, c, dskip, h0, y, hf, B, S, H, P, N, st);
+  if (dtype == 0)
+    return launch<float>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, N, st);
+  if (dtype == 1)
+    return launch<bf16>(x, dt, a, b, c, dskip, h0, y, hf, dh, decay, cb, B, S, H, P, N, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -18,16 +18,26 @@ written out; on CPU tensors it runs the plain version, :func:`ssd_plain`.
 Neither has a backward, as in the reference: the wrapper raises on an
 input that requires grad, and training takes ``models.mamba2.ssd_chunked``.
 
-Both compute in float32, in chunks of ``CHUNK`` tokens: with cs the
-inclusive cumulative sum of a·Δ over the chunk, the band
-(C_t·B_s) exp(cs_t − cs_s) for s <= t (selected to 0 above the diagonal
-before any product, so strong decay gives no inf·0), the state's share
-exp(cs_t) h C_t, and the state carried as exp(cs_end) h +
-Σ_s exp(cs_end − cs_s) Δ_s x_s B_sᵀ.  B and C are cast to float32 before
-C·Bᵀ, as in the reference's kernel route (its ``ssd_chunked`` rounds C·Bᵀ to
-the model's dtype: ROADMAP queue 3).  The ragged end is padded with zero x,
-B, C and Δ, which adds nothing to y or h, where the reference shrinks its
-chunk until it divides S.
+Both compute the kernel's chunk-parallel form in float32, in chunks of
+``CHUNK`` tokens.  With cs the inclusive cumulative sum of a·Δ over the
+chunk:
+
+- the chunk's change of the state is Σ_s (x_s exp(cs_end − cs_s) Δ_s) B_sᵀ,
+  and the state carried across chunks is h <- exp(cs_end) h + that change;
+- y_t = exp(cs_t) (C_t · h_in) + Σ_{s <= t} M'[t][s] x_s + D x_t with the
+  band M'[t][s] = ((C_t·B_s) exp(cs_t − cs_s)) Δ_s, selected to 0 above the
+  diagonal before any product, so strong decay gives no inf·0.
+
+B and C are cast to float32 before C·Bᵀ, as in the reference's kernel
+route (its ``ssd_chunked`` rounds C·Bᵀ to the model's dtype: ROADMAP queue
+3).  The ragged end is padded with zero x, B, C and Δ, which adds nothing
+to y or h, where the reference shrinks its chunk until it divides S.
+
+``ssd_plain(..., bf16_operands=True)`` rounds each float32 operand of the
+kernel's tensor-core products (the weighted x and B of the state's change,
+C and the state, M' and x) to bfloat16 first: the single-pass product, a
+control that the card's checks must tell from the kernel, which splits
+each such operand into a bf16 hi and lo term.
 """
 from __future__ import annotations
 
@@ -40,48 +50,67 @@ from repro_torch.kernels import build
 
 #: launches of the kernel (one per wrapper call on CUDA)
 LAUNCHES = {"ssd_scan": 0}
-CHUNK = 32
+CHUNK = 64
+#: the bf16 y bound of the card's checks (relative L2 against ssd_plain), set
+#: between the kernel's reading and the bf16-operand control's, which exceeds it
+BF16_REL = 1e-3
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_SLAB = 64      # chunks a step of ssd_plain's output pass (bounds its temporaries)
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
               c: torch.Tensor, d_skip: torch.Tensor, h0: Optional[torch.Tensor] = None, *,
-              chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+              bf16_operands: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, float32 inside: the same
-    chunks, padding and factors."""
+    chunks, padding, factors and products."""
     bsz, s, h, p = x.shape
     n = b.shape[-1]
-    pad = (-s) % chunk
-    nc = (s + pad) // chunk
+    pad = (-s) % CHUNK
+    nc = (s + pad) // CHUNK
+    op = (lambda t: t.bfloat16().float()) if bf16_operands else (lambda t: t)
 
     def chunks(t):
         if pad:
             t = torch.cat([t, t.new_zeros((bsz, pad, *t.shape[2:]))], dim=1)
-        return t.reshape(bsz, nc, chunk, *t.shape[2:])
+        return t.reshape(bsz, nc, CHUNK, *t.shape[2:])
 
     xf, dtf = x.float(), dt.float()
-    xr = chunks(xf * dtf[..., None])                                    # Δ-weighted x
-    ar = chunks(a.float()[None, None] * dtf)                            # a·Δ <= 0
-    br, cr = chunks(b.float()), chunks(c.float())
+    xr, dr = chunks(xf), chunks(dtf)                                    # (B, nc, L, H, P), (B, nc, L, H)
+    br, cr = chunks(b.float()), chunks(c.float())                       # (B, nc, L, N)
+    cs = torch.cumsum(a.float() * dr, dim=2)                            # inclusive, a·Δ <= 0
+    end = cs[:, :, -1]                                                  # (B, nc, H)
+
+    # 1. each chunk's change of the state and its decay
+    wgt = torch.exp(end[:, :, None] - cs) * dr
+    dh = torch.einsum("bcshp,bcsn->bchpn", op(xr * wgt[..., None]), op(br))
+    decay = torch.exp(end)
+    del wgt
+
+    # 2. the state each chunk starts from
     state = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
              if h0 is None else h0.float())
-    above = ~torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    h_in = torch.empty_like(dh)
+    for ci in range(nc):
+        h_in[:, ci] = state
+        state = decay[:, ci, :, None, None] * state + dh[:, ci]
+    del dh
+
+    # 3. y, a slab of chunks at a time
+    above = ~torch.tril(torch.ones((CHUNK, CHUNK), dtype=torch.bool, device=x.device))
     ys = []
-    for i in range(nc):
-        xc, ac, bc, cc = xr[:, i], ar[:, i], br[:, i], cr[:, i]
-        cs = torch.cumsum(ac, dim=1)                                    # (B, c, H) inclusive
-        cb = torch.einsum("btn,bsn->bts", cc, bc)
-        decay = (cs[:, :, None] - cs[:, None]).masked_fill(above[None, :, :, None],
-                                                           float("-inf"))
-        m = torch.exp(decay) * cb[..., None]                            # (B, t, s, H)
-        y = torch.einsum("btsh,bshp->bthp", m, xc)
-        y = y + torch.exp(cs)[..., None] * torch.einsum("btn,bhpn->bthp", cc, state)
-        end = cs[:, -1]                                                 # (B, H)
-        w = torch.exp(end[:, None] - cs)                                # (B, c, H)
-        state = state * torch.exp(end)[..., None, None] + torch.einsum(
-            "bshp,bsn->bhpn", xc * w[..., None], bc)
+    for c0 in range(0, nc, _SLAB):
+        sl = slice(c0, min(nc, c0 + _SLAB))
+        cs_, dr_, cr_ = cs[:, sl], dr[:, sl], cr[:, sl]
+        y = torch.exp(cs_)[..., None] * torch.einsum("bctn,bchpn->bcthp", op(cr_),
+                                                     op(h_in[:, sl]))
+        cb = torch.einsum("bctn,bcsn->bcts", op(cr_), op(br[:, sl]))
+        gap = (cs_[:, :, :, None] - cs_[:, :, None]).masked_fill(above[None, None, :, :, None],
+                                                                float("-inf"))
+        m = (cb[..., None] * torch.exp(gap)) * dr_[:, :, None]          # (B, n, t, s, H)
+        y = y + torch.einsum("bctsh,bcshp->bcthp", op(m), op(xr[:, sl]))
         ys.append(y)
-    y = torch.cat(ys, dim=1)[:, :s] + xf * d_skip.float()[None, None, :, None]
+    y = torch.cat(ys, dim=1).reshape(bsz, nc * CHUNK, h, p)[:, :s]
+    y = y + xf * d_skip.float()[None, None, :, None]
     return y.to(x.dtype), state
 
 
@@ -136,12 +165,20 @@ def ssd_kernel(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tens
     n = b.shape[-1]
     y = torch.empty_like(x)
     hf = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    # the kernel's float32 scratch: each chunk's change of the state (then
+    # the state it starts from), its decay, and its C·Bᵀ (one for all
+    # heads); freed when this returns
+    nc = -(-s // CHUNK)
+    dh = torch.empty((bsz, h, nc, p, n), dtype=torch.float32, device=x.device)
+    decay = torch.empty((bsz, h, nc), dtype=torch.float32, device=x.device)
+    cb = torch.empty((bsz, nc, CHUNK, CHUNK), dtype=torch.float32, device=x.device)
     fn = build.function("mamba2_ssd", "ssd_scan_fwd",
-                        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
                    d_skip.data_ptr(), 0 if h0 is None else h0.data_ptr(), y.data_ptr(),
-                   hf.data_ptr(), bsz, s, h, p, n, _DTYPE_CODES[x.dtype], stream), "ssd_scan")
+                   hf.data_ptr(), dh.data_ptr(), decay.data_ptr(), cb.data_ptr(),
+                   bsz, s, h, p, n, _DTYPE_CODES[x.dtype], stream), "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, hf
 
