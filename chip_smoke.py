@@ -15,7 +15,11 @@ Phases, each timed with CUDA events:
    ragged ones (N = 3, D not a multiple of a block; k = 1, an even k, all
    rows masked): the median bit-equal, CenteredClip within 3e-5, krum's d2
    selection-equal and within 1e-5 of the squared norms of both its plain
-   version and a float64 gram, decode-accumulate within 1e-6;
+   version and a float64 gram, decode-accumulate within 1e-6; at full
+   width, the masked CenteredClip chain of 3 iterations (the fused
+   aggregator's) bit-equal to three single-iteration calls and to a second
+   chain, and within 3e-5 of three plain iterations, on every mask, fixed
+   and adaptive tau;
 2b. the QSGD encode kernel against its plain version at the showcase's
    wire (one node's D values, buckets of 512, 127 levels; 317,222 buckets,
    the last ragged), at compressed_wire's 64 / 512, at the global-norm
@@ -23,7 +27,9 @@ Phases, each timed with CUDA events:
    255; levels 16, 64, 127), codes equal; the unmasked CenteredClip
    iteration against its plain version at (10, D) and at k = 1, 2, 3, 7 with
    D = 257 and 1,000, fixed and adaptive tau, within 3e-5, two launches
-   bit-equal;
+   bit-equal; at each of those shapes the unmasked chain of 3 iterations
+   bit-equal to three single-iteration calls and to a second chain, and
+   within 3e-5 of three plain iterations;
 3. the sliding-window attention kernel against its plain version at the
    prefill's shape (B 1, S 32,768, H 32 / Hkv 8, hd 80, window 4,096, bf16),
    at zamba2's full causal shape (B 1, S 32,768, H 32 / 32, hd 64,
@@ -65,12 +71,13 @@ Phases, each timed with CUDA events:
 6. fused against unfused: one showcase round from the same state with the
    same draws; equal audits and masks, close aggregate and params; then two
    more showcase rounds timed, and one under torch.profiler (device time by
-   kernel, the device's busy share);
+   kernel, the device's busy share, and the mean time of each of the
+   CenteredClip chain's three launch kinds, held to 1 + 2 x 3 launches);
 4b. the sequential engine's path: ``python -m repro_torch.launch.swarm
    --full --rounds 3 --engine sequential`` (the showcase on the per-node
    ``SequentialSwarm``: the dense median warm start and the unmasked
    CenteredClip kernel over the compacted survivors), with phase 4's checks
-   and its peak memory; one round under torch.profiler;
+   and its peak memory; one round under torch.profiler, as phase 6's;
 6c. the sequential engine against the batched one at full width: round 0
    of the showcase from the same init and seed (so the same draws); equal
    ``n_active``, ``caught`` and minted nodes, the two aggregates within
@@ -143,7 +150,13 @@ Phases, each timed with CUDA events:
 9. time each kernel, its plain version and the matching PyTorch library
    call where one exists, at the main paths' shapes (the two scans' rows
    also give the bytes a call holds beyond its outputs and the mean time
-   of each of their three launches from 7c and 7e); the attention
+   of each of their three launches from 7c and 7e; the two CenteredClip
+   rows time the chain of 3 iterations the rounds run, an iteration's
+   share against the chain's bound (x and v0 read once, the output
+   written once), beside the chain's dependency floor (the stack read 4
+   times), the single-iteration call against its own bound, ``x.clone()``
+   of the stack as a reference rate, and the chain's three launch kinds
+   from 6b and 4b); the attention
    kernel at both of its served shapes (danube's band against
    ``flex_attention`` with a sliding-window block mask, zamba2's causal
    triangle against ``scaled_dot_product_attention(is_causal=True)``).
@@ -172,6 +185,7 @@ ROOT = Path(__file__).resolve().parent
 N_NODES = 10
 D_FULL = 162_417_408            # protocol-125m's parameter count
 SHOWCASE_ROUNDS = 3
+CC_ITERS = 3                    # CenteredClip iterations a round (one chain)
 BUCKET, LEVELS_WIRE = 512, 64   # compressed_wire's QSGD wire
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
@@ -291,7 +305,7 @@ class Smoke:
         self.errors = {}           # kernel -> max abs error at main-path shapes
         self.row_errors = {}       # kernel -> mean row relative L2, where phase 3 reads one
         self.launches = {}         # driven path -> {kernel: launches on it}
-        self.scan_split = {}       # scan kernel -> {its CUDA kernel: mean ms a launch}
+        self.scan_split = {}       # kernel -> {its launch kind: mean ms a launch}
 
     # -- helpers ------------------------------------------------------------------
     def phase(self, name, fn):
@@ -371,7 +385,7 @@ class Smoke:
         self.phase("5 other configs (full width)", lambda: self.other_configs(main_out))
         self.phase("6 fused vs unfused", lambda: self.fused_vs_unfused(main_out))
         self.phase("6b showcase rounds timed and profiled",
-                   lambda: self.profile_rounds(main_out["swarm"]))
+                   lambda: self.profile_rounds(main_out["swarm"], "masked_cc_iter"))
         seq_out = self.phase("4b sequential engine (showcase_sequential, full width)",
                              self.sequential_path)
         del seq_out
@@ -460,6 +474,13 @@ class Smoke:
                     if main_shape:
                         self.record_err("masked_cc_iter", o, r)
                     del o, r
+                    if main_shape:
+                        self.chain_vs_iters(
+                            lambda vv, t=tau: magg.masked_cc_iter(x, vv, m, clip_tau=t),
+                            lambda vv, t=tau: magg.masked_cc_iter_plain(x, vv, m, t),
+                            lambda vv, t=tau: magg.masked_cc_chain(x, vv, m, iters=CC_ITERS,
+                                                                   clip_tau=t),
+                            v, f"masked_cc_chain ({tag}, tau={tau})", "masked_cc_iter")
                 del out, ref, v
                 print(f"  median + cc_iter ok: {tag}", flush=True)
             # krum d2: gram-form rounding, same selection on every mask.  The
@@ -880,8 +901,41 @@ class Smoke:
                     float((o - r).abs().max())
                 print(f"  cc_iter ok: {tag}, max abs err {err:.3e}", flush=True)
                 del o, again, r
+                self.chain_vs_iters(
+                    lambda vv, t=tau: cc.cc_iter(x, vv, clip_tau=t),
+                    lambda vv, t=tau: cc.cc_iter_plain(x, vv, t),
+                    lambda vv, t=tau: cc.cc_chain(x, vv, iters=CC_ITERS, clip_tau=t),
+                    v, f"cc_chain ({tag})", "cc_iter" if (k, d) == cases[0] else None)
             del x, v
             self.free()
+
+    def chain_vs_iters(self, one, plain, chain, v0, tag, err_name):
+        """Phases 2 and 2b: a CenteredClip chain of ``CC_ITERS`` iterations
+        from ``v0`` bit-equal to as many single-iteration calls (``one``) and
+        to a second chain, and within 3e-5 of as many plain iterations (NaN
+        where both are).  The error to plain counts for ``err_name``'s
+        row."""
+        torch = self.torch
+        a = chain(v0)
+        v = v0
+        for _ in range(CC_ITERS):
+            v = one(v)
+        check(self.bit_equal(a, v), f"{tag}: the chain differs from {CC_ITERS} single "
+                                    f"iterations")
+        del v
+        check(self.bit_equal(a, chain(v0)), f"{tag}: two chains differ")
+        r = v0
+        for _ in range(CC_ITERS):
+            r = plain(r)
+        ok = ((a - r).abs() <= 3e-5 + 3e-5 * r.abs()) | (a.isnan() & r.isnan())
+        check(bool(ok.all()), f"{tag}: the chain is beyond 3e-5 of {CC_ITERS} plain "
+                              f"iterations")
+        err = self.record_err(err_name, a, r) if err_name else \
+            float(torch.nan_to_num((a - r).abs()).max())
+        print(f"  {tag}: chain of {CC_ITERS} bit-equal to {CC_ITERS} single iterations and to "
+              f"a second chain, max abs err to plain {err:.3e}", flush=True)
+        del a, r
+        self.free()
 
     def sequential_path(self):
         """Phase 4b: the showcase on the sequential engine at full width,
@@ -904,7 +958,7 @@ class Smoke:
               f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
               f"({held:.2f} GiB held before it), losses {out['losses']}, slashed "
               f"{sorted(sw.slashed)}", flush=True)
-        self.profile_rounds(sw)
+        self.profile_rounds(sw, "cc_iter")
         return out
 
     def engines_agree(self, main_out):
@@ -946,10 +1000,13 @@ class Smoke:
               flush=True)
         check(rel <= 1e-5, f"the engines' aggregates differ by {rel:.3e} relative L2 (bound 1e-5)")
 
-    def profile_rounds(self, sw):
+    def profile_rounds(self, sw, cc_kernel):
         """Two more showcase rounds of ``sw`` timed on the host clock, then
         one under torch.profiler: device time by kernel and the device's
-        busy share."""
+        busy share.  The round's CenteredClip chain (``cc_kernel``'s row)
+        is held to 1 + 2 x CC_ITERS launches: one norm pass, then a
+        finalize and an apply pass an iteration; the mean device ms of each
+        kind is kept for its phase 9 row."""
         torch = self.torch
         from torch.profiler import ProfilerActivity, profile
         times = []
@@ -984,6 +1041,20 @@ class Smoke:
               f"unprofiled round ({plain_ms:.1f} ms)", flush=True)
         for e in sorted(events, key=self_dev, reverse=True)[:14]:
             print(f"    {self_dev(e):9.2f} ms  x{e.count:<5d} {e.key[:90]}", flush=True)
+        kinds = {"(a) cc_norm_pass": ("cc_norm_pass<",),
+                 "(b) finalize": ("cc_finalize<", "cc_dense_finalize<"),
+                 "(c) cc_apply_pass": ("cc_apply_pass<",)}
+        ms, count = {k: 0.0 for k in kinds}, {k: 0 for k in kinds}
+        for e in events:
+            for kind, parts in kinds.items():
+                if any(part in e.key for part in parts):
+                    ms[kind] += self_dev(e)
+                    count[kind] += e.count
+        print(f"    {cc_kernel} chain by launch kind: " + ", ".join(
+            f"{k} x{count[k]} {ms[k] / max(count[k], 1):.3f} ms" for k in kinds), flush=True)
+        want = dict(zip(kinds, (1, CC_ITERS, CC_ITERS)))
+        check(count == want, f"{cc_kernel}: chain launches {count}, expected {want}")
+        self.scan_split[cc_kernel] = {k: ms[k] / count[k] for k in kinds}
 
     def protocol_serve(self):
         """The serving path at full width, on counters of its own; returns
@@ -1683,27 +1754,26 @@ class Smoke:
                 torch.nanquantile(x[:, c0:c0 + step], 0.5, dim=0,
                                   interpolation="midpoint")
 
-        rows = []
         f32 = 4
-        specs = [
-            ("masked_median", lambda: magg.masked_median(x, m),
-             lambda: magg.masked_median_plain(x, m), nanquantile_chunks,
-             (n * d + d) * f32 + n * f32, 0),
-            ("masked_cc_iter", lambda: magg.masked_cc_iter(x, v, m, clip_tau=2.0),
-             lambda: magg.masked_cc_iter_plain(x, v, m, 2.0), None,
-             (n * d + 2 * d) * f32 + n * f32, 0),
-            ("masked_krum_d2", lambda: magg.masked_krum_d2(x),
-             lambda: magg.masked_krum_d2_plain(x),
-             lambda: torch.cdist(x, x) ** 2,
-             n * d * f32 + n * n * f32, n * (n + 1) * d),
+        # a yardstick for the CenteredClip rows: the stack read and written once
+        clone_ms = self.time_ms(x.clone, 10)
+        self.free()
+        rows = [
+            self.row("masked_median", lambda: magg.masked_median(x, m),
+                     lambda: magg.masked_median_plain(x, m), nanquantile_chunks,
+                     (n * d + d) * f32 + n * f32, 0),
+            self.cc_row("masked_cc_iter",
+                        lambda: magg.masked_cc_chain(x, v, m, iters=CC_ITERS, clip_tau=2.0),
+                        lambda: magg.masked_cc_iter(x, v, m, clip_tau=2.0),
+                        lambda: magg.masked_cc_iter_plain(x, v, m, 2.0), clone_ms),
+            self.row("masked_krum_d2", lambda: magg.masked_krum_d2(x),
+                     lambda: magg.masked_krum_d2_plain(x), lambda: torch.cdist(x, x) ** 2,
+                     n * d * f32 + n * n * f32, n * (n + 1) * d),
+            # the sequential engine's chain over 10 survivors
+            self.cc_row("cc_iter", lambda: cc.cc_chain(x, v, iters=CC_ITERS, clip_tau=2.0),
+                        lambda: cc.cc_iter(x, v, clip_tau=2.0),
+                        lambda: cc.cc_iter_plain(x, v, 2.0), clone_ms),
         ]
-        for name, kern, plain, lib, nbytes, flops in specs:
-            rows.append(self.row(name, kern, plain, lib, nbytes, flops))
-        # the sequential engine's CenteredClip iteration over 10 survivors:
-        # x read once, v read and the output written; ~5 operations an element
-        rows.append(self.row("cc_iter", lambda: cc.cc_iter(x, v, clip_tau=2.0),
-                             lambda: cc.cc_iter_plain(x, v, 2.0), None,
-                             (n * d + 2 * d) * f32, 5 * n * d))
         del v
         # the showcase wire's encode of one node: x and u read, norms read,
         # int8 codes written; ~6 operations an element
@@ -1737,6 +1807,45 @@ class Smoke:
         rows.append(self.wkv_row())
         rows.append(self.ssd_row())
         return rows
+
+    def cc_row(self, name, chain, single, plain, clone_ms):
+        """A CenteredClip row as the rounds run the kernel: the chain of
+        CC_ITERS iterations over the (10, D) stack from the median, fixed
+        tau 2.0.  ms, plain ms (one plain iteration) and the bound are an
+        iteration's share of the chain's.  The bound counts each input read
+        once and the output written once, (N + 2) D * 4 bytes for the whole
+        chain; operations ~5 an element an iteration.  Beside it the
+        dependency floor, the bytes of a design that forms each iteration's
+        norms from x and the previous output, as this chain does:
+        ((iters + 1) N D + (2 iters + 1) D) * 4 (x read iters + 1 times, v0
+        read, each output written and, but the last, read again); the
+        single-iteration call (the chain of 1) against its own bound, (N +
+        2) D * 4 bytes; the chain's rate over the floor's bytes beside
+        ``x.clone()``'s at the stack's shape (``clone_ms``, timed in the
+        same call); and the mean ms of each of the chain's three launch
+        kinds from phase 6b (masked) or 4b (dense)."""
+        n, d, f32 = N_NODES, D_FULL, 4
+        once_bytes = (n * d + 2 * d) * f32
+        floor_bytes = ((CC_ITERS + 1) * n * d + (2 * CC_ITERS + 1) * d) * f32
+        clone_rate = 2 * n * d * f32 / clone_ms / 1e9
+        extra = {"iters": CC_ITERS, "dependency_floor_bytes": floor_bytes,
+                 "dependency_floor_ms": floor_bytes / HBM_BYTES_PER_S * 1e3 / CC_ITERS,
+                 "launches_per_chain": 1 + 2 * CC_ITERS,
+                 "single_ms": self.time_ms(single, 10),
+                 "single_bound_ms": once_bytes / HBM_BYTES_PER_S * 1e3,
+                 "clone_ms": clone_ms, "clone_TB_per_s": clone_rate,
+                 "launch_ms": self.scan_split.get(name)}
+        row = self.row(name, chain, plain, None, once_bytes / CC_ITERS, 5 * n * d,
+                       per_call=CC_ITERS, extra=extra)
+        row["chain_ms"] = row["ms"] * CC_ITERS
+        row["chain_TB_per_s"] = floor_bytes / row["chain_ms"] / 1e9
+        print(f"    {name}: chain of {CC_ITERS} {row['chain_ms']:.3f} ms (bound "
+              f"{once_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, {once_bytes} bytes; dependency "
+              f"floor {floor_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms, {floor_bytes} bytes, moved "
+              f"at {row['chain_TB_per_s']:.3f} TB/s against x.clone()'s {clone_rate:.3f}); one "
+              f"iteration alone {extra['single_ms']:.3f} ms (bound "
+              f"{extra['single_bound_ms']:.3f} ms)", flush=True)
+        return row
 
     def wkv_row(self):
         """wkv_scan at the rwkv6 serving prefill's shape.  No single PyTorch
@@ -1862,12 +1971,14 @@ class Smoke:
         return rows
 
     def row(self, name, kern, plain, lib, nbytes, flops, flop_rate=FP32_FLOP_PER_S,
-            scan=False):
-        ms = self.time_ms(kern, 10)
-        extra = {}
+            scan=False, per_call=1, extra=None):
+        """A kernel's row; ``kern`` does ``per_call`` units of the work that
+        ``nbytes``, ``flops`` and ``plain`` do once, and ``ms`` is a unit's."""
+        ms = self.time_ms(kern, 10) / per_call
+        extra = dict(extra or {})
         if scan:       # the chunk-parallel scans: scratch, and their three launches in 7c/7e
-            extra = {"scratch_bytes": self.held_bytes(kern),
-                     "launch_ms": self.scan_split.get(name)}
+            extra.update({"scratch_bytes": self.held_bytes(kern),
+                          "launch_ms": self.scan_split.get(name)})
         plain_ms = self.time_ms(plain, 2)
         lib_ms = self.time_ms(lib, 2) if lib is not None else None
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1886,10 +1997,12 @@ class Smoke:
         print(f"  {name}: {ms:.3f} ms (bound {row['bound_ms']:.3f} ms by "
               f"{row['bound_by']}, {row['bound_ms'] / ms:.1%} of it), plain "
               f"{plain_ms:.3f} ms, library {lib_ms}"
-              + (f", scratch {extra['scratch_bytes']} bytes held, by launch "
-                 + (", ".join(f"{k} {v:.3f} ms" for k, v in extra["launch_ms"].items())
-                    if extra["launch_ms"] else "not measured (no device time profiled)")
-                 if extra else ""), flush=True)
+              + (f", scratch {extra['scratch_bytes']} bytes held" if scan else "")
+              + (", by launch " + (", ".join(f"{k} {v:.3f} ms"
+                                             for k, v in extra["launch_ms"].items())
+                                   if extra["launch_ms"]
+                                   else "not measured (no device time profiled)")
+                 if "launch_ms" in extra else ""), flush=True)
         self.free()
         return row
 

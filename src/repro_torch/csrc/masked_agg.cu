@@ -2,18 +2,23 @@
 // (sm_90a).  Three kernels replace the Pallas TPU kernels of
 // src/repro/kernels/masked_agg/kernel.py:
 //
-//   masked_median_f32   <- masked_median_fwd   (kernel.py:133)
-//   masked_cc_iter_f32  <- masked_cc_iter_fwd  (kernel.py:192)
-//   masked_krum_d2_f32  <- masked_krum_d2_fwd  (kernel.py:234)
+//   masked_median_f32    <- masked_median_fwd   (kernel.py:133)
+//   masked_cc_chain_f32  <- masked_cc_iter_fwd  (kernel.py:192)
+//   masked_krum_d2_f32   <- masked_krum_d2_fwd  (kernel.py:234)
 //
 // All three are bound by device memory on an H100 (3.35 TB/s): at the swarm
 // round's shapes (N = 10, D = 162,417,408) each reads the stack once or
 // twice and does a few operations per byte.  Bounds, counting each input
 // read once and each output written once:
 //   median   (N + 1) * D * 4 bytes  = 7.15 GB -> 2.13 ms
-//   cc_iter  (N + 2) * D * 4 bytes  = 7.80 GB -> 2.33 ms
+//   cc_chain (N + 2) * D * 4 bytes  = 7.80 GB -> 2.33 ms, for any iters
+//            (x and v0 read, v_T written: 0.78 ms an iteration at 3)
 //   krum_d2  N * D * 4 bytes        = 6.50 GB -> 1.94 ms
 //            (2 N^2 D = 32.5 GFLOP at 67 TFLOP/s fp32 is 0.49 ms, below it)
+// The chain forms each iteration's norms from x and the previous output,
+// so it reads the stack iters + 1 times, its dependency floor:
+// ((iters + 1) N D + (2 iters + 1) D) * 4 bytes = 30.53 GB -> 9.115 ms for
+// 3 iterations, 3.04 ms an iteration (agg_common.cuh names a two-read form).
 //
 // Design.  On the TPU one core walks the grid in order and carries sums in
 // VMEM scratch; here blocks run in parallel with nothing carried between
@@ -29,16 +34,22 @@
 //   ranks of the kept count k: (v[(k-1)/2] + v[k/2]) * 0.5, NaN for k = 0.
 //   A compare-exchange swaps iff b < a, so the sort is a permutation and the
 //   result is bit-equal to the plain version, signed zeros included.
-// - cc_iter: three launches, all on the device with no host sync.
-//   (a) per-block partial squared norms sum_c (x_ic - v_c)^2, shape
-//       (N, n_blocks); the thread holds one accumulator per node.
-//   (b) one block adds the partials in block order, takes the norms, the
-//       adaptive tau (the masked median of the norms, same network), the
-//       kept count k and the per-node weights w_i = m_i * min(1, tau /
-//       max(|x_i - v|, 1e-12)).  NaN propagates as in torch.minimum.
-//   (c) one thread per column: out = v + (sum_i (x_i - v) * w_i) / k,
-//       in node order with round-to-nearest mul and add (no contraction),
-//       the plain version's exact arithmetic.
+// - cc_chain: iters >= 1 iterations from v0 in 1 + 2 iters launches on
+//   the device with no host sync, reading the stack iters + 1 times (the
+//   chain of agg_common.cuh):
+//   (a) cc_norm_pass: per-block partial squared norms sum_c (x_ic - v_c)^2,
+//       shape (N, n_blocks), 16-byte loads where the layout allows;
+//   (b) cc_finalize, one block: adds the partials in block order, takes the
+//       norms, the adaptive tau (the masked median of the norms, same
+//       network), the kept count k and the per-node weights w_i = m_i *
+//       min(1, tau / max(|x_i - v|, 1e-12)).  NaN propagates as in
+//       torch.minimum;
+//   (c) cc_apply_pass: out = v + (sum_i (x_i - v) * w_i) / k, in node order
+//       with round-to-nearest mul and add (no contraction), the plain
+//       version's exact arithmetic; then, but for the last iteration, the
+//       next partial squared norms from the rows it holds.
+//   The wrapper's single iteration (masked_cc_iter) is the chain at
+//   iters = 1, bit-equal to one step of a longer chain.
 // - krum_d2: each block walks its own run of 128-column tiles, stages each
 //   tile in shared memory (rows padded by one word against bank
 //   conflicts), and accumulates the upper triangle of the N x N gram
@@ -50,7 +61,7 @@
 //
 // N <= 64 for every kernel (NP in {2, ..., 64}); the Python wrapper raises
 // above.  Each entry point returns cudaGetLastError().  The sorting network,
-// the partial norms and the clip scale are shared with centered_clip.cu
+// the chain's passes and the clip scale are shared with centered_clip.cu
 // (agg_common.cuh).
 
 #include <cuda_runtime.h>
@@ -117,25 +128,13 @@ cc_finalize(const float* __restrict__ partial, int nblk, const float* __restrict
   k_out[0] = ksum < 1.f ? 1.f : ksum;
 }
 
-__global__ void __launch_bounds__(kThreads)
-cc_apply(const float* __restrict__ x, const float* __restrict__ v,
-         const float* __restrict__ w, const float* __restrict__ kf,
-         float* __restrict__ out, int n, long long d) {
-  __shared__ float sw[kMaxN];
-  __shared__ float sk;
-  if (threadIdx.x < n) sw[threadIdx.x] = w[threadIdx.x];
-  if (threadIdx.x == 0) sk = kf[0];
-  __syncthreads();
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= d) return;
-  const float vc = v[c];
-  float acc = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const float df = __fsub_rn(x[(long long)i * d + c], vc);
-    acc = __fadd_rn(acc, __fmul_rn(df, sw[i]));
+// (c)'s last step: v + acc / k, k the kept count clamped to >= 1 (cc_finalize's kf)
+struct MaskedMean {
+  static __device__ __forceinline__ float scalar(const float* kf, int) { return kf[0]; }
+  static __device__ __forceinline__ float apply(float acc, float k, float vc) {
+    return __fadd_rn(vc, __fdiv_rn(acc, k));
   }
-  out[c] = __fadd_rn(vc, __fdiv_rn(acc, sk));
-}
+};
 
 __device__ __forceinline__ void pair_of(int p, int n, int& i, int& j) {
   i = 0;
@@ -217,19 +216,16 @@ struct MedianLaunch {
 };
 
 template <int NP>
-struct CcLaunch {
-  static cudaError_t run(const float* x, const float* v, const float* mask, float* out,
-                         float* partial, int nblk, float* w, float* kf, int n, long long d,
-                         float tau, int adaptive, cudaStream_t s) {
-    const long long chunk = (d + nblk - 1) / nblk;
-    cc_sqnorm_partial<NP><<<nblk, kThreads, 0, s>>>(x, v, partial, n, d, chunk);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    cc_finalize<NP><<<1, kThreads, 0, s>>>(partial, nblk, mask, n, tau, adaptive, w, kf);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    cc_apply<<<blocks_for(d, kThreads), kThreads, 0, s>>>(x, v, w, kf, out, n, d);
-    return cudaGetLastError();
+struct CcChainLaunch {
+  static cudaError_t run(const float* x, const float* v0, const float* mask, float* out,
+                         float* partial, int nblk, long long chunk, int vec, float* w, float* kf,
+                         int n, long long d, int iters, float tau, int adaptive,
+                         cudaStream_t s) {
+    auto fin = [=](cudaStream_t st) {
+      cc_finalize<NP><<<1, kThreads, 0, st>>>(partial, nblk, mask, n, tau, adaptive, w, kf);
+    };
+    return run_chain_vec<NP, MaskedMean>(vec, x, v0, out, partial, nblk, chunk, w, kf, n, d,
+                                         iters, fin, s);
   }
 };
 
@@ -244,14 +240,18 @@ int masked_median_f32(const void* x, const void* mask, void* out, int n, long lo
                                         n, d, (cudaStream_t)stream);
 }
 
-// partial: (n, nblk) float scratch; w: (n,) and kf: (1,) float scratch.
-int masked_cc_iter_f32(const void* x, const void* v, const void* mask, void* out,
-                       void* partial, int nblk, void* w, void* kf, int n, long long d,
-                       float tau, int adaptive, void* stream) {
-  if (n < 1 || n > kMaxN || nblk < 1) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_np<CcLaunch>(n, (const float*)x, (const float*)v, (const float*)mask,
-                                    (float*)out, (float*)partial, nblk, (float*)w, (float*)kf,
-                                    n, d, tau, adaptive, (cudaStream_t)stream);
+// iters >= 1 masked CenteredClip iterations from v0 into out, on the layout
+// (nblk, chunk, vec) of chain_plan (kernels/cc_chain.py).  partial:
+// (n, nblk) float scratch; w: (n,) and kf: (1,) float scratch.
+int masked_cc_chain_f32(const void* x, const void* v0, const void* mask, void* out,
+                        void* partial, int nblk, long long chunk, int vec, void* w, void* kf,
+                        int n, long long d, int iters, float tau, int adaptive, void* stream) {
+  if (iters < 1 || !chain_layout_ok(n, d, nblk, chunk, vec, x, v0, out))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch_np<CcChainLaunch>(n, (const float*)x, (const float*)v0,
+                                         (const float*)mask, (float*)out, (float*)partial, nblk,
+                                         chunk, vec, (float*)w, (float*)kf, n, d, iters, tau,
+                                         adaptive, (cudaStream_t)stream);
 }
 
 // partial: (nblk, n (n + 1) / 2) float scratch; d2: (n, n) float.

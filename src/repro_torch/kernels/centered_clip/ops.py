@@ -12,10 +12,17 @@ float32 1/k, fused with the add of v into one rounding as XLA compiles the
 reference's body, so this is not ``masked_cc_iter`` with an all-true mask
 (which divides by k).
 
+:func:`cc_chain` runs ``iters`` iterations in one call: on CUDA tensors
+1 + 2·iters launches that read the stack iters + 1 times (the next
+iteration's norms come from the pass that forms v); on CPU tensors a loop
+of :func:`cc_iter_plain`.  :func:`cc_iter` is the chain of one.  The
+column layout is ``kernels/cc_chain.py``'s, shared with ``masked_agg``'s
+chain.
+
 :func:`centered_clip` warm-starts from the dense coordinate median
 (``aggregation.coordinate_median``: the ``masked_median`` kernel with an
-all-true mask on CUDA) unless ``v0`` is given, then runs ``iters``
-iterations.
+all-true mask on CUDA) unless ``v0`` is given, then runs the chain of
+``iters`` iterations.
 """
 from __future__ import annotations
 
@@ -26,13 +33,12 @@ import torch
 
 from repro_torch.core import aggregation    # which imports this module back
 from repro_torch.kernels import build
+from repro_torch.kernels.cc_chain import aligned_copy, check_iters, plan_for
 
-#: launches of the CenteredClip iteration (one per wrapper call on CUDA)
+#: CenteredClip iterations launched on CUDA (+iters a cc_chain, 1 a cc_iter)
 LAUNCHES = {"cc_iter": 0}
 
 MAX_NODES = 64
-_THREADS = 256
-_BLOCKS = 2048             # partial-norm blocks of the first launch
 
 
 def _median(values: torch.Tensor) -> torch.Tensor:
@@ -59,48 +65,69 @@ def cc_iter_plain(x: torch.Tensor, v: torch.Tensor,
     return (v.double() + total.double() * inv.double()).float()
 
 
-def _check(x: torch.Tensor, v: torch.Tensor) -> None:
+def _check(x: torch.Tensor, v: torch.Tensor, what: str = "cc_iter") -> None:
     if x.dim() != 2 or x.dtype != torch.float32:
-        raise TypeError(f"cc_iter needs a (k, D) float32 stack, got "
+        raise TypeError(f"{what} needs a (k, D) float32 stack, got "
                         f"{tuple(x.shape)} {x.dtype}")
     if not 1 <= x.shape[0] <= MAX_NODES:
-        raise ValueError(f"cc_iter takes 1..{MAX_NODES} rows, got {x.shape[0]}")
+        raise ValueError(f"{what} takes 1..{MAX_NODES} rows, got {x.shape[0]}")
     if tuple(v.shape) != (x.shape[1],) or v.dtype != torch.float32 \
             or v.device != x.device:
-        raise ValueError(f"cc_iter: v must be ({x.shape[1]},) float32 on {x.device}")
+        raise ValueError(f"{what}: v must be ({x.shape[1]},) float32 on {x.device}")
+
+
+_P = ctypes.c_void_p
 
 
 def cc_iter(x: torch.Tensor, v: torch.Tensor, *,
             clip_tau: Optional[float] = None) -> torch.Tensor:
     """One CenteredClip iteration over the (k, D) float32 rows ``x`` from
-    ``v`` -> (D,)."""
-    _check(x, v)
+    ``v`` -> (D,): the chain of one (three launches on CUDA)."""
+    return _chain(x, v, 1, clip_tau, "cc_iter")
+
+
+def cc_chain(x: torch.Tensor, v0: torch.Tensor, *, iters: int,
+             clip_tau: Optional[float] = None) -> torch.Tensor:
+    """``iters`` CenteredClip iterations over the (k, D) float32 rows ``x``
+    from ``v0`` -> (D,), bit-equal to ``iters`` calls of :func:`cc_iter`.
+    ``iters = 0`` returns ``v0``."""
+    check_iters(iters, "cc_chain")
+    return _chain(x, v0, iters, clip_tau, "cc_chain")
+
+
+def _chain(x: torch.Tensor, v0: torch.Tensor, iters: int, clip_tau: Optional[float],
+           what: str) -> torch.Tensor:
+    _check(x, v0, what)
+    if iters == 0:
+        return v0
     if not x.is_cuda:
-        return cc_iter_plain(x, v, clip_tau)
-    x, v = x.contiguous(), v.contiguous()
+        v = v0
+        for _ in range(iters):
+            v = cc_iter_plain(x, v, clip_tau)
+        return v
+    x, v0 = x.contiguous(), aligned_copy(v0)
     n, d = x.shape
-    nblk = max(1, min(_BLOCKS, -(-d // _THREADS)))
+    plan = plan_for(x)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
-    partial = torch.empty((n, nblk), dtype=torch.float32, device=x.device)
+    partial = torch.empty((n, plan.nblk), dtype=torch.float32, device=x.device)
     scales = torch.empty(n, dtype=torch.float32, device=x.device)
-    p = ctypes.c_void_p
-    fn = build.function("centered_clip", "cc_iter_f32",
-                        [p, p, p, p, ctypes.c_int, p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_float, ctypes.c_int, p])
+    fn = build.function("centered_clip", "cc_chain_f32",
+                        [_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P,
+                         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                         ctypes.c_int, _P])
     tau = 0.0 if clip_tau is None else float(clip_tau)
-    build.check(fn(x.data_ptr(), v.data_ptr(), out.data_ptr(), partial.data_ptr(), nblk,
-                   scales.data_ptr(), n, d, tau, int(clip_tau is None),
-                   torch.cuda.current_stream(x.device).cuda_stream), "cc_iter")
-    LAUNCHES["cc_iter"] += 1
+    build.check(fn(x.data_ptr(), v0.data_ptr(), out.data_ptr(), partial.data_ptr(), plan.nblk,
+                   plan.chunk, plan.vec, scales.data_ptr(), n, d, iters, tau,
+                   int(clip_tau is None), torch.cuda.current_stream(x.device).cuda_stream),
+                what)
+    LAUNCHES["cc_iter"] += iters
     return out
 
 
 def centered_clip(updates: torch.Tensor, *, clip_tau: Optional[float] = 1.0,
                   iters: int = 3, v0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(k, D) -> (D,) robust aggregate: the dense median (or ``v0``), then
-    ``iters`` iterations of :func:`cc_iter`."""
+    the chain of ``iters`` iterations."""
     x = updates.float()
     v = aggregation.coordinate_median(x) if v0 is None else v0.float()
-    for _ in range(iters):
-        v = cc_iter(x, v, clip_tau=clip_tau)
-    return v
+    return cc_chain(x, v, iters=iters, clip_tau=clip_tau)

@@ -6,8 +6,9 @@ version beside it:
 
 - :func:`masked_median` — the masked coordinate median (CenteredClip's warm
   start), a Batcher odd-even network over the node rows;
-- :func:`masked_cc_iter` — one masked CenteredClip iteration, fixed or
-  adaptive τ;
+- :func:`masked_cc_chain` — ``iters`` masked CenteredClip iterations,
+  fixed or adaptive τ, in 1 + 2·iters launches that read the stack
+  iters + 1 times; :func:`masked_cc_iter` is the chain of one;
 - :func:`masked_krum_d2` — krum's (N, N) gram-form squared distances.
 
 A wrapper launches its CUDA kernel (``csrc/masked_agg.cu``) on CUDA tensors
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.core import aggregation
 from repro_torch.kernels import build
+from repro_torch.kernels.cc_chain import aligned_copy, check_iters, plan_for
 from repro_torch.kernels.qsgd_decode import ops as qdec
 
 #: On CPU tensors make_round_fn auto-selects the fused path once the float32
@@ -39,12 +41,11 @@ from repro_torch.kernels.qsgd_decode import ops as qdec
 #: crossover is not measured), so a fusable round always runs the kernels.
 FUSED_MIN_BYTES = 4 << 20
 
-#: launches per kernel: +1 each time a wrapper launches its CUDA kernel
+#: launches per kernel: +1 each time a wrapper launches its CUDA kernel;
+#: ``masked_cc_iter`` counts CenteredClip iterations (+iters a chain)
 LAUNCHES = {"masked_median": 0, "masked_cc_iter": 0, "masked_krum_d2": 0}
 
 MAX_NODES = 64
-_THREADS = 256
-_CC_BLOCKS = 2048          # partial-norm blocks of cc_iter (a)
 _KRUM_BLOCKS = 1024        # partial-gram blocks of krum_d2
 _TILE = 128
 
@@ -186,29 +187,52 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def masked_cc_iter(x: torch.Tensor, v: torch.Tensor, mask: torch.Tensor, *,
                    clip_tau: Optional[float] = None) -> torch.Tensor:
     """One masked CenteredClip iteration v + Σᵢ mᵢ·clip(xᵢ − v, τ)/k ->
-    (D,).  ``clip_tau=None`` takes the adaptive τ (masked median of
-    ‖xᵢ − v‖), computed on the device."""
-    _check_stack(x, mask, "masked_cc_iter")
-    if tuple(v.shape) != (x.shape[1],) or v.dtype != torch.float32:
-        raise ValueError(f"masked_cc_iter: v must be ({x.shape[1]},) float32")
+    (D,): the chain of one (three launches on CUDA).  ``clip_tau=None``
+    takes the adaptive τ (masked median of ‖xᵢ − v‖), computed on the
+    device."""
+    return _cc_chain(x, v, mask, 1, clip_tau, "masked_cc_iter")
+
+
+def masked_cc_chain(x: torch.Tensor, v0: torch.Tensor, mask: torch.Tensor, *,
+                    iters: int, clip_tau: Optional[float] = None) -> torch.Tensor:
+    """``iters`` masked CenteredClip iterations from ``v0`` -> (D,),
+    bit-equal to ``iters`` calls of :func:`masked_cc_iter`; on CUDA
+    tensors 1 + 2·iters launches that read the stack iters + 1 times.
+    ``iters = 0`` returns ``v0``."""
+    check_iters(iters, "masked_cc_chain")
+    return _cc_chain(x, v0, mask, iters, clip_tau, "masked_cc_chain")
+
+
+def _cc_chain(x: torch.Tensor, v0: torch.Tensor, mask: torch.Tensor, iters: int,
+              clip_tau: Optional[float], what: str) -> torch.Tensor:
+    _check_stack(x, mask, what)
+    if tuple(v0.shape) != (x.shape[1],) or v0.dtype != torch.float32 \
+            or v0.device != x.device:
+        raise ValueError(f"{what}: v must be ({x.shape[1]},) float32 on {x.device}")
+    if iters == 0:
+        return v0
     if not x.is_cuda:
-        return masked_cc_iter_plain(x, v, mask, clip_tau)
-    x, v = x.contiguous(), v.contiguous()
+        v = v0
+        for _ in range(iters):
+            v = masked_cc_iter_plain(x, v, mask, clip_tau)
+        return v
+    x, v0 = x.contiguous(), aligned_copy(v0)
     m = mask.float().contiguous()
     n, d = x.shape
-    nblk = max(1, min(_CC_BLOCKS, -(-d // _THREADS)))
+    plan = plan_for(x)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
-    partial = torch.empty((n, nblk), dtype=torch.float32, device=x.device)
+    partial = torch.empty((n, plan.nblk), dtype=torch.float32, device=x.device)
     w = torch.empty(n, dtype=torch.float32, device=x.device)
     kf = torch.empty(1, dtype=torch.float32, device=x.device)
-    fn = build.function("masked_agg", "masked_cc_iter_f32",
-                        [_P, _P, _P, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int,
-                         ctypes.c_longlong, ctypes.c_float, ctypes.c_int, _P])
+    fn = build.function("masked_agg", "masked_cc_chain_f32",
+                        [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                         _P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_float, ctypes.c_int, _P])
     tau = 0.0 if clip_tau is None else float(clip_tau)
-    build.check(fn(x.data_ptr(), v.data_ptr(), m.data_ptr(), out.data_ptr(),
-                   partial.data_ptr(), nblk, w.data_ptr(), kf.data_ptr(), n, d,
-                   tau, int(clip_tau is None), _stream(x)), "masked_cc_iter")
-    LAUNCHES["masked_cc_iter"] += 1
+    build.check(fn(x.data_ptr(), v0.data_ptr(), m.data_ptr(), out.data_ptr(),
+                   partial.data_ptr(), plan.nblk, plan.chunk, plan.vec, w.data_ptr(),
+                   kf.data_ptr(), n, d, iters, tau, int(clip_tau is None), _stream(x)), what)
+    LAUNCHES["masked_cc_iter"] += iters
     return out
 
 
@@ -252,8 +276,7 @@ def masked_centered_clip_fused(updates: Updates, mask: torch.Tensor, *,
                                v0: Optional[torch.Tensor] = None) -> torch.Tensor:
     x = _as_f32_stack(updates)
     v = v0.float() if v0 is not None else masked_median(x, mask)
-    for _ in range(iters):
-        v = masked_cc_iter(x, v, mask, clip_tau=clip_tau)
+    v = masked_cc_chain(x, v, mask, iters=iters, clip_tau=clip_tau)
     return torch.where(torch.any(mask), v, torch.zeros_like(v))
 
 

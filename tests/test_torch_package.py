@@ -21,6 +21,7 @@ from repro_torch.core import compression, unextractable
 from repro_torch.core.swarm import make_round_fn
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
+from repro_torch.kernels import cc_chain
 from repro_torch.kernels.centered_clip import ops as cc_ops
 from repro_torch.kernels.mamba2_scan import ops as ssd_ops
 from repro_torch.kernels.masked_agg import ops as magg
@@ -343,6 +344,78 @@ def test_cc_iter_kernel_bounded_and_repeatable(cuda, clip_tau, k, d):
     torch.testing.assert_close(out, cc_ops.cc_iter_plain(x, v, clip_tau), rtol=3e-5,
                                atol=3e-5)
     assert torch.equal(out, cc_ops.cc_iter(x, v, clip_tau=clip_tau))
+
+
+def _bits_equal(a, b):
+    """The same bit patterns (NaN's included), as ``torch.equal`` would say
+    if NaN equalled itself."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _chain_stack(cuda, k, d, offset):
+    """A (k, d) stack whose base lies ``offset`` floats past an allocation's
+    (16-byte aligned) start; contiguous either way."""
+    flat = _stack(1, k * d + offset, seed=k + d)[0].to(cuda)
+    return flat[offset:].view(k, d)
+
+
+# (k, d, offset): d not a multiple of 4; a row base not 16-byte aligned;
+# n = 64 (one float a thread); the main path's vector layout
+CHAIN_CASES = [(10, 100_003, 0), (10, 100_000, 0), (10, 100_000, 1), (3, 4097, 0),
+               (64, 1000, 0), (32, 4096, 0), (7, 1024, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip_tau", [None, 2.0])
+@pytest.mark.parametrize("k,d,offset", CHAIN_CASES)
+def test_cc_chain_kernel_equals_its_iterations(cuda, clip_tau, k, d, offset):
+    """The chain at iters = 1, 2, 3 is bit-equal to that many ``cc_iter``
+    calls, within 3e-5 of the plain loop, and repeats its bits; it counts
+    one launch an iteration and takes 16-byte loads where it may."""
+    x = _chain_stack(cuda, k, d, offset)
+    v0 = x.mean(0) * 0.5
+    assert cc_chain.plan_for(x).vec == (4 if d % 4 == 0 and offset == 0 and k <= 32 else 1)
+    v, plain = v0, v0
+    for iters in (1, 2, 3):
+        v = cc_ops.cc_iter(x, v, clip_tau=clip_tau)
+        plain = cc_ops.cc_iter_plain(x, plain, clip_tau)
+        before = cc_ops.LAUNCHES["cc_iter"]
+        chain = cc_ops.cc_chain(x, v0, iters=iters, clip_tau=clip_tau)
+        assert cc_ops.LAUNCHES["cc_iter"] == before + iters
+        assert _bits_equal(chain, v)
+        torch.testing.assert_close(chain, plain, rtol=3e-5, atol=3e-5)
+        assert _bits_equal(chain, cc_ops.cc_chain(x, v0, iters=iters, clip_tau=clip_tau))
+    assert cc_ops.cc_chain(x, v0, iters=0, clip_tau=clip_tau) is v0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip_tau", [None, 2.0])
+@pytest.mark.parametrize("mask_kind", ["all", "some", "none"])
+@pytest.mark.parametrize("k,d,offset", CHAIN_CASES)
+def test_masked_cc_chain_kernel_equals_its_iterations(cuda, clip_tau, mask_kind, k, d, offset):
+    """The masked chain as the dense one above; with no row kept and an
+    adaptive τ every value is NaN (τ is the median of nothing), on the
+    chain, its iterations and the plain loop alike, and the fused
+    aggregator's ``any(mask)`` guard then gives zeros."""
+    x = _chain_stack(cuda, k, d, offset)
+    v0 = x.mean(0) * 0.5
+    i = torch.arange(k, device=cuda)
+    mask = {"all": i < k, "some": i % 3 != 0, "none": i < 0}[mask_kind]
+    v, plain = v0, v0
+    for iters in (1, 2, 3):
+        v = magg.masked_cc_iter(x, v, mask, clip_tau=clip_tau)
+        plain = magg.masked_cc_iter_plain(x, plain, mask, clip_tau)
+        before = magg.LAUNCHES["masked_cc_iter"]
+        chain = magg.masked_cc_chain(x, v0, mask, iters=iters, clip_tau=clip_tau)
+        assert magg.LAUNCHES["masked_cc_iter"] == before + iters
+        assert _bits_equal(chain, v)
+        torch.testing.assert_close(chain, plain, rtol=3e-5, atol=3e-5, equal_nan=True)
+        assert _bits_equal(chain, magg.masked_cc_chain(x, v0, mask, iters=iters,
+                                                       clip_tau=clip_tau))
+    if mask_kind == "none" and clip_tau is None:
+        assert bool(chain.isnan().all())
+        fused = magg.masked_centered_clip_fused(x, mask, clip_tau=clip_tau)
+        assert _bits_equal(fused, torch.zeros_like(fused))
 
 
 def _qkv(b, s, hq, hkv, hd, dtype, device, seed=0):
