@@ -19,7 +19,10 @@ Phases, each timed with CUDA events:
    width, the masked CenteredClip chain of 3 iterations (the fused
    aggregator's) bit-equal to three single-iteration calls and to a second
    chain, and within 3e-5 of three plain iterations, on every mask, fixed
-   and adaptive tau;
+   and adaptive tau; the median at every kept count K = 0..10, bit-equal;
+   the median and krum_d2 captured in a CUDA graph and replayed at K = 10,
+   7, 0 and 4 (the mask copied into the captured buffer), equal to eager
+   calls;
 2b. the QSGD encode kernel against its plain version at the showcase's
    wire (one node's D values, buckets of 512, 127 levels; 317,222 buckets,
    the last ragged), at compressed_wire's 64 / 512, at the global-norm
@@ -156,8 +159,10 @@ Phases, each timed with CUDA events:
    written once), beside the chain's dependency floor (the stack read 4
    times), the single-iteration call against its own bound, ``x.clone()``
    of the stack as a reference rate, and the chain's three launch kinds
-   from 6b and 4b); the attention
-   kernel at both of its served shapes (danube's band against
+   from 6b and 4b); the median also at K = 7 kept rows (its bytes (K + 1)
+   D * 4); krum_d2's library column the faster of ``torch.cdist(x, x) **
+   2`` and the same with ``compute_mode="use_mm_for_euclid_dist"``, both
+   timed; the attention kernel at both of its served shapes (danube's band against
    ``flex_attention`` with a sliding-window block mask, zamba2's causal
    triangle against ``scaled_dot_product_attention(is_causal=True)``).
 
@@ -483,12 +488,16 @@ class Smoke:
                             v, f"masked_cc_chain ({tag}, tau={tau})", "masked_cc_iter")
                 del out, ref, v
                 print(f"  median + cc_iter ok: {tag}", flush=True)
+            if main_shape:
+                self.median_every_k(x)
+                self.graph_replay(x)
             # krum d2: gram-form rounding, same selection on every mask.  The
             # gram form cancels: d2 = |x_i|^2 + |x_j|^2 - 2 x_i.x_j, so float32
             # rounding scales with the squared norms, sums of D products
             # (~1e-6 of them at D = 1.6e8).  Held against the plain version
-            # (which sums the same 128-column tiles) and against an
-            # independent float64 gram, each within 1e-5 of the squared norms
+            # (which sums each thread's columns, then the threads and blocks,
+            # as the kernel does) and against an independent float64 gram,
+            # each within 1e-5 of the squared norms
             d2, ref = magg.masked_krum_d2(x), magg.masked_krum_d2_plain(x)
             g64 = torch.zeros((n, n), dtype=torch.float64, device=self.dev)
             step = (1 << 24) // n
@@ -541,6 +550,50 @@ class Smoke:
             print(f"  decode_accumulate ok: N={n} L={nb * BUCKET}", flush=True)
             del codes, norms
             self.free()
+
+    def median_every_k(self, x):
+        """The median at every kept count K = 0..N at full width, the kept
+        rows a random subset, bit-equal to its plain version: each K takes
+        its own branch of the kernel (K = 0 NaN, the exact networks up to
+        16)."""
+        torch = self.torch
+        from repro_torch.kernels.masked_agg import ops as magg
+        n = x.shape[0]
+        g = torch.Generator().manual_seed(5)
+        for k in range(n + 1):
+            m = torch.zeros(n, dtype=torch.bool)
+            m[torch.randperm(n, generator=g)[:k]] = True
+            m = m.to(self.dev)
+            out, ref = magg.masked_median(x, m), magg.masked_median_plain(x, m)
+            check(self.bit_equal(out, ref), f"median not bit-equal at K={k} (full width)")
+            self.record_err("masked_median", out, ref)
+            del out, ref
+        print(f"  median bit-equal at every K = 0..{n} (N={n} D={x.shape[1]})", flush=True)
+
+    def graph_replay(self, x):
+        """masked_median and masked_krum_d2 captured once in a CUDA graph
+        and replayed: equal to eager calls at the captured mask and after
+        other masks are copied into its buffer, so neither wrapper reads
+        the mask or K on the host."""
+        torch = self.torch
+        from repro_torch.kernels.masked_agg import ops as magg
+        n = x.shape[0]
+        mask = torch.ones(n, dtype=torch.bool, device=self.dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            med = magg.masked_median(x, mask)
+            d2 = magg.masked_krum_d2(x)
+        for keep in (n, 7, 0, 4):
+            mask.copy_(torch.arange(n, device=self.dev) < keep)
+            graph.replay()
+            torch.cuda.synchronize()
+            check(self.bit_equal(med, magg.masked_median(x, mask)),
+                  f"median under graph replay differs from eager (K={keep})")
+            check(torch.equal(d2, magg.masked_krum_d2(x)),
+                  f"krum_d2 under graph replay differs from eager (K={keep})")
+        del graph, med, d2
+        print("  median and krum_d2 replayed in a CUDA graph at K = 10, 7, 0, 4: equal to "
+              "eager", flush=True)
 
     def swa_inputs(self, b, s, hq, hkv, hd, dtype, seed=0):
         g = self.torch.Generator(device=self.dev).manual_seed(seed)
@@ -1724,6 +1777,14 @@ class Smoke:
               f"kernel and blockwise routes differ beyond 4e-3 (updates {max(gaps):.3e}, "
               f"logits {gap:.3e})")
 
+    def card_state(self):
+        """The card's SM and memory clocks, power draw and temperature, as
+        nvidia-smi reads them now."""
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+                              "temperature.gpu", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        return smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}"
+
     def time_ms(self, fn, reps):
         torch = self.torch
         fn()
@@ -1758,17 +1819,23 @@ class Smoke:
         # a yardstick for the CenteredClip rows: the stack read and written once
         clone_ms = self.time_ms(x.clone, 10)
         self.free()
+        # the median also at K = 7 kept rows (the rounds mask nodes): it
+        # reads only the kept rows, (K + 1) D * 4 bytes
+        m7 = torch.arange(n, device=self.dev) < 7
+        k7_bytes = (7 * d + d) * f32 + n * f32
+        k7 = {"k7_ms": self.time_ms(lambda: magg.masked_median(x, m7), 10),
+              "k7_bound_ms": k7_bytes / HBM_BYTES_PER_S * 1e3}
+        print(f"    masked_median at K = 7: {k7['k7_ms']:.3f} ms (bound "
+              f"{k7['k7_bound_ms']:.3f} ms, {k7_bytes} bytes)", flush=True)
         rows = [
             self.row("masked_median", lambda: magg.masked_median(x, m),
                      lambda: magg.masked_median_plain(x, m), nanquantile_chunks,
-                     (n * d + d) * f32 + n * f32, 0),
+                     (n * d + d) * f32 + n * f32, 0, extra=k7),
             self.cc_row("masked_cc_iter",
                         lambda: magg.masked_cc_chain(x, v, m, iters=CC_ITERS, clip_tau=2.0),
                         lambda: magg.masked_cc_iter(x, v, m, clip_tau=2.0),
                         lambda: magg.masked_cc_iter_plain(x, v, m, 2.0), clone_ms),
-            self.row("masked_krum_d2", lambda: magg.masked_krum_d2(x),
-                     lambda: magg.masked_krum_d2_plain(x), lambda: torch.cdist(x, x) ** 2,
-                     n * d * f32 + n * n * f32, n * (n + 1) * d),
+            self.krum_row(x),
             # the sequential engine's chain over 10 survivors
             self.cc_row("cc_iter", lambda: cc.cc_chain(x, v, iters=CC_ITERS, clip_tau=2.0),
                         lambda: cc.cc_iter(x, v, clip_tau=2.0),
@@ -1807,6 +1874,31 @@ class Smoke:
         rows.append(self.wkv_row())
         rows.append(self.ssd_row())
         return rows
+
+    def krum_row(self, x):
+        """krum_d2 at the (10, D) stack.  Two PyTorch calls compute the same
+        distances: ``torch.cdist(x, x) ** 2`` (at 10 rows cdist takes its
+        pairwise-difference path) and ``torch.cdist(x, x, compute_mode=
+        "use_mm_for_euclid_dist") ** 2`` (the Gram form through a matrix
+        product, full float32: TF32 is off); the row's library column is the
+        faster of the two, by name, both beside it."""
+        torch = self.torch
+        from repro_torch.kernels.masked_agg import ops as magg
+        n, d = x.shape
+        calls = {"torch.cdist(x, x) ** 2": lambda: torch.cdist(x, x) ** 2,
+                 'torch.cdist(x, x, compute_mode="use_mm_for_euclid_dist") ** 2':
+                     lambda: torch.cdist(x, x, compute_mode="use_mm_for_euclid_dist") ** 2}
+        lib_ms = {name: self.time_ms(fn, 2) for name, fn in calls.items()}
+        self.free()
+        best = min(lib_ms, key=lib_ms.get)
+        row = self.row("masked_krum_d2", lambda: magg.masked_krum_d2(x),
+                       lambda: magg.masked_krum_d2_plain(x), None,
+                       n * d * 4 + n * n * 4, n * (n + 1) * d,
+                       extra={"library_call": best, "library_ms_by_call": lib_ms})
+        row["library_ms"] = lib_ms[best]
+        print(f"    masked_krum_d2: library {best} {lib_ms[best]:.3f} ms ("
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in lib_ms.items()) + ")", flush=True)
+        return row
 
     def cc_row(self, name, chain, single, plain, clone_ms):
         """A CenteredClip row as the rounds run the kernel: the chain of
@@ -1975,6 +2067,7 @@ class Smoke:
         """A kernel's row; ``kern`` does ``per_call`` units of the work that
         ``nbytes``, ``flops`` and ``plain`` do once, and ``ms`` is a unit's."""
         ms = self.time_ms(kern, 10) / per_call
+        card = self.card_state()
         extra = dict(extra or {})
         if scan:       # the chunk-parallel scans: scratch, and their three launches in 7c/7e
             extra.update({"scratch_bytes": self.held_bytes(kern),
@@ -2002,7 +2095,8 @@ class Smoke:
                                              for k, v in extra["launch_ms"].items())
                                    if extra["launch_ms"]
                                    else "not measured (no device time profiled)")
-                 if "launch_ms" in extra else ""), flush=True)
+                 if "launch_ms" in extra else "") + f"; card after the kernel's timing: {card}",
+              flush=True)
         self.free()
         return row
 

@@ -1,9 +1,10 @@
-// Device code shared by the CenteredClip kernels of masked_agg.cu and
-// centered_clip.cu: Batcher's odd-even sorting network, the midpoint of the
-// two middle ranks, the CenteredClip chain's two streaming passes over an
-// (N, D) stack and their layout, the clip scale, and the dispatch on
-// NP = next_pow2(N) in {2, ..., 64}.  Each including file is its own
-// library, so everything here has internal linkage.
+// Device code shared by the kernels of masked_agg.cu and centered_clip.cu:
+// Batcher's odd-even sorting network, the midpoint of the two middle ranks,
+// the CenteredClip chain's two streaming passes over an (N, D) stack and
+// their layout, the column loads and the block reduction (which
+// masked_agg.cu's streaming median and krum d2 also use), the clip scale,
+// and the dispatch on NP = next_pow2(N) in {2, ..., 64}.  Each including
+// file is its own library, so everything here has internal linkage.
 
 #pragma once
 
@@ -325,10 +326,6 @@ __device__ __forceinline__ float clip_scale(float tau, float norm) {
   const float den = isnan(norm) ? norm : fmaxf(norm, 1e-12f);
   const float r = __fdiv_rn(tau, den);
   return isnan(r) ? r : fminf(1.f, r);
-}
-
-inline unsigned blocks_for(long long work, int per_block) {
-  return (unsigned)((work + per_block - 1) / per_block);
 }
 
 template <template <int> class Launch, typename... Args>

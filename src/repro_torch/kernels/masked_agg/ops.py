@@ -5,7 +5,8 @@ Three kernels, each a wrapper with a launch counter and a plain PyTorch
 version beside it:
 
 - :func:`masked_median` — the masked coordinate median (CenteredClip's warm
-  start), a Batcher odd-even network over the node rows;
+  start): a merge-exchange network over the K kept rows for K <= 16
+  (:func:`median_pairs`), Batcher's padded odd-even network above;
 - :func:`masked_cc_chain` — ``iters`` masked CenteredClip iterations,
   fixed or adaptive τ, in 1 + 2·iters launches that read the stack
   iters + 1 times; :func:`masked_cc_iter` is the chain of one;
@@ -15,8 +16,9 @@ A wrapper launches its CUDA kernel (``csrc/masked_agg.cu``) on CUDA tensors
 and runs the plain version only on CPU tensors; nothing falls back.  The
 plain versions repeat the kernels' arithmetic: the median is bit-equal,
 the CenteredClip iteration differs only in the order of the norm
-reductions (~1e-6 relative), and d2 only in the order its per-tile sums are
-added.
+reductions (~1e-6 relative), and d2 only in the order in which each
+thread's column sums are added.  The median and d2 stream the stack on the
+grid of :func:`stream_grid`.
 
 The fused aggregators on top (``masked_*_fused``) share names and keyword
 surface with ``core.aggregation``, and also accept a node-batched
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -46,8 +48,20 @@ FUSED_MIN_BYTES = 4 << 20
 LAUNCHES = {"masked_median": 0, "masked_cc_iter": 0, "masked_krum_d2": 0}
 
 MAX_NODES = 64
-_KRUM_BLOCKS = 1024        # partial-gram blocks of krum_d2
-_TILE = 128
+#: the median's exact networks and krum's register Gram take up to this
+#: many rows (``kMaxExact`` of csrc/masked_agg.cu, held equal by a CPU test)
+MAX_EXACT = 16
+THREADS = 256              # a block of the streaming kernels (kThreads)
+#: the streaming kernels' grid: STREAM_WAVES waves of STREAM_BLOCKS_PER_SM
+#: resident blocks an SM (their launch bound at n <= 10) times the SM count.
+#: tools/agg_stream_probe.py on an H100, (10, 162,417,408): krum_d2 2.055
+#: ms at 1 or 2 waves, 2.078 at 4, 2.124 at 8; the median 2.413 at 2
+#: waves, 2.409 at 4, 2.403 at 8 (2.361 with a block for every 1,024
+#: columns); 2 waves give the pair's least sum
+STREAM_WAVES = 2
+STREAM_BLOCKS_PER_SM = 2
+#: the SM count of an H100 SXM: the grid the plain d2 follows on a CPU tensor
+H100_SMS = 132
 
 
 def oddeven_merge_pairs(n: int) -> List[Tuple[int, int]]:
@@ -67,6 +81,68 @@ def oddeven_merge_pairs(n: int) -> List[Tuple[int, int]]:
             k //= 2
         p *= 2
     return pairs
+
+
+def merge_exchange_pairs(k: int) -> List[Tuple[int, int]]:
+    """Compare-exchange pairs of Knuth's merge exchange (Batcher's; TAOCP
+    vol. 3, §5.2.2, Algorithm M), which sorts exactly ``k`` inputs, in the
+    order ``merge_exchange`` of csrc/masked_agg.cu applies them: for p =
+    top, top/2, ..., 1 (top the largest power of two below k) a pass (d =
+    p, r = 0), then one (d = q − p, r = p) for q = top, top/2, ... while
+    q > p; a pass compares (i, i + d) for every i < k − d with i & p == r."""
+    if k < 2:
+        return []
+    top = 1 << ((k - 1).bit_length() - 1)
+    pairs: List[Tuple[int, int]] = []
+    p = top
+    while p > 0:
+        q = 2 * top
+        while q > p:
+            d, r = (p, 0) if q == 2 * top else (q - p, p)
+            pairs += [(i, i + d) for i in range(k - d) if i & p == r]
+            q //= 2
+        p //= 2
+    return pairs
+
+
+@functools.lru_cache(maxsize=None)
+def median_pairs(k: int) -> Tuple[Tuple[int, int], ...]:
+    """:func:`merge_exchange_pairs` of ``k`` less every pair that neither
+    middle rank, (k − 1) // 2 nor k // 2, depends on: the comparators the
+    kernel keeps once the compiler drops the selects nothing reads (29 of
+    31 at k = 10)."""
+    need = {(k - 1) // 2, k // 2}
+    kept = []
+    for i, j in reversed(merge_exchange_pairs(k)):
+        if i in need or j in need:
+            kept.append((i, j))
+            need |= {i, j}
+    return tuple(reversed(kept))
+
+
+class StreamGrid(NamedTuple):
+    """Thread t of block b takes ``vec`` neighbouring columns at (b·THREADS
+    + t)·vec, then every ``nblk``·THREADS·vec columns."""
+    nblk: int
+    vec: int
+
+
+def stream_grid(d: int, aligned: bool, sms: int) -> StreamGrid:
+    """The median's and d2's grid for D = ``d`` on a card of ``sms`` SMs:
+    STREAM_WAVES · STREAM_BLOCKS_PER_SM · sms blocks, fewer where D has
+    less than a step of columns for each; 16-byte loads (``vec`` 4) where
+    the stack's base is 16-byte ``aligned`` and d % 4 == 0, else 1."""
+    vec = 4 if aligned and d % 4 == 0 else 1
+    nblk = max(1, min(STREAM_WAVES * STREAM_BLOCKS_PER_SM * sms, -(-d // (THREADS * vec))))
+    return StreamGrid(nblk, vec)
+
+
+def grid_for(x: torch.Tensor) -> StreamGrid:
+    """:func:`stream_grid` for a contiguous (n, d) stack on its card (an
+    H100's SM count for a CPU tensor)."""
+    sms = (torch.cuda.get_device_properties(x.device).multi_processor_count
+           if x.is_cuda else H100_SMS)
+    return stream_grid(x.shape[1], x.data_ptr() % 16 == 0, sms)
 
 
 def _next_pow2(n: int) -> int:
@@ -102,11 +178,24 @@ def _rank_mid(rows: List[torch.Tensor], k: torch.Tensor) -> torch.Tensor:
 
 
 def masked_median_plain(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The kernel's median: the K kept rows through :func:`median_pairs`
+    for K <= MAX_EXACT, the padded odd-even network over all rows (masked
+    ones +inf) above, NaN for K = 0.  Reads the mask on the host."""
     m = mask.float()
+    kept = torch.nonzero(m > 0).flatten().tolist()
+    k = len(kept)
+    if k == 0:
+        return torch.full((x.shape[1],), float("nan"), device=x.device)
+    if k <= MAX_EXACT:
+        rows = [x[i] for i in kept]
+        for i, j in median_pairs(k):
+            a, b = rows[i], rows[j]
+            swap = b < a
+            rows[i], rows[j] = torch.where(swap, b, a), torch.where(swap, a, b)
+        return (rows[(k - 1) // 2] + rows[k // 2]) * 0.5
     inf = torch.full((), float("inf"), device=x.device)
     rows = [torch.where(m[i] > 0, x[i], inf) for i in range(x.shape[0])]
-    k = torch.sum((m > 0).to(torch.int64))
-    return _rank_mid(_network_sort(rows), k)
+    return _rank_mid(_network_sort(rows), torch.tensor(k, device=x.device))
 
 
 def masked_cc_iter_plain(x: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
@@ -132,15 +221,20 @@ def masked_cc_iter_plain(x: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
 
 
 def masked_krum_d2_plain(x: torch.Tensor) -> torch.Tensor:
-    """The gram matrix of each 128-column tile, summed over the tiles — the
-    kernel's decomposition — then the gram form.  (One float32 matrix
-    product over all D = 1.6e8 columns at once rounds far more: it differed
-    from the kernel by ~1e-4 of the squared norms.)"""
+    """The kernel's decomposition on :func:`grid_for`'s grid: each thread's
+    sums of x_i·x_j over its columns, summed over the block's threads, then
+    over the blocks; the upper triangle mirrored; then the gram form.  (One
+    float32 matrix product over all D = 1.6e8 columns at once rounds far
+    more: it differed from the kernel by ~1e-4 of the squared norms.)"""
     n, d = x.shape
-    if d % _TILE:
-        x = torch.nn.functional.pad(x, (0, _TILE - d % _TILE))
-    tiles = x.reshape(n, -1, _TILE).transpose(0, 1)              # (T, N, 128)
-    g = torch.sum(torch.bmm(tiles, tiles.transpose(1, 2)), dim=0)
+    nblk, vec = grid_for(x)
+    stride = nblk * THREADS * vec
+    steps = -(-d // stride)
+    xp = torch.nn.functional.pad(x, (0, steps * stride - d))
+    xp = xp.reshape(n, steps, nblk, THREADS, vec)
+    per_thread = torch.einsum("isbtj,ksbtj->ikbt", xp, xp)       # (N, N, blocks, threads)
+    g = torch.sum(torch.sum(per_thread, dim=3), dim=2)
+    g = torch.triu(g) + torch.triu(g, 1).T
     sq = torch.diagonal(g)
     return sq[:, None] + sq[None, :] - 2.0 * g
 
@@ -167,19 +261,22 @@ _P = ctypes.c_void_p
 
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Masked coordinate median of an (N, D) float32 stack -> (D,); NaN
-    where no row is kept.  Bit-equal to ``aggregation._masked_median``
-    up to the sign of zero."""
+    where no row is kept.  Equal in value to ``aggregation._masked_median``
+    (a tie of +0.0 and −0.0 may give the other zero).  On CUDA one launch
+    that reads the kept rows once; the kept count stays on the device."""
     _check_stack(x, mask, "masked_median")
     if not x.is_cuda:
         return masked_median_plain(x, mask)
     x = x.contiguous()
     m = mask.float().contiguous()
     n, d = x.shape
+    grid = grid_for(x)
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     fn = build.function("masked_agg", "masked_median_f32",
-                        [_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P])
-    build.check(fn(x.data_ptr(), m.data_ptr(), out.data_ptr(), n, d, _stream(x)),
-                "masked_median")
+                        [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_longlong, _P])
+    build.check(fn(x.data_ptr(), m.data_ptr(), out.data_ptr(), grid.nblk, grid.vec, n, d,
+                   _stream(x)), "masked_median")
     LAUNCHES["masked_median"] += 1
     return out
 
@@ -238,20 +335,22 @@ def _cc_chain(x: torch.Tensor, v0: torch.Tensor, mask: torch.Tensor, iters: int,
 
 def masked_krum_d2(x: torch.Tensor) -> torch.Tensor:
     """(N, N) pairwise squared distances ‖xᵢ‖² + ‖xⱼ‖² − 2xᵢᵀxⱼ of an
-    (N, D) float32 stack."""
+    (N, D) float32 stack; on CUDA one pass over the stack and a one-block
+    finalize."""
     _check_stack(x, None, "masked_krum_d2")
     if not x.is_cuda:
         return masked_krum_d2_plain(x)
     x = x.contiguous()
     n, d = x.shape
-    nblk = max(1, min(_KRUM_BLOCKS, -(-d // _TILE)))
-    partial = torch.empty((nblk, n * (n + 1) // 2), dtype=torch.float32,
+    grid = grid_for(x)
+    partial = torch.empty((n * (n + 1) // 2, grid.nblk), dtype=torch.float32,
                           device=x.device)
     d2 = torch.empty((n, n), dtype=torch.float32, device=x.device)
     fn = build.function("masked_agg", "masked_krum_d2_f32",
-                        [_P, _P, ctypes.c_int, _P, ctypes.c_int, ctypes.c_longlong, _P])
-    build.check(fn(x.data_ptr(), partial.data_ptr(), nblk, d2.data_ptr(), n, d,
-                   _stream(x)), "masked_krum_d2")
+                        [_P, _P, ctypes.c_int, ctypes.c_int, _P, ctypes.c_int,
+                         ctypes.c_longlong, _P])
+    build.check(fn(x.data_ptr(), partial.data_ptr(), grid.nblk, grid.vec, d2.data_ptr(), n,
+                   d, _stream(x)), "masked_krum_d2")
     LAUNCHES["masked_krum_d2"] += 1
     return d2
 

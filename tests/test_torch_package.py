@@ -262,6 +262,95 @@ def test_median_kernel_bit_equal(cuda, n, d, k):
                                atol=0, equal_nan=True)
 
 
+def _bit_equal(a, b):
+    """Identical bit patterns (signed zeros included); NaN matches NaN."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())).all())
+
+
+def _stack_at(n, d, layout, device, seed=0):
+    """An (n, d) stack: 16-byte aligned (the VEC = 4 route), at a base 4
+    bytes off a 16-byte boundary, or with an odd d (both VEC = 1)."""
+    if layout == "odd_d":
+        d += 1 - d % 2
+    x = _stack(n, d, seed)
+    if layout == "misaligned":
+        buf = torch.empty(n * d + 1, device=device)
+        out = buf[1:].view(n, d)
+        out.copy_(x)
+        assert out.data_ptr() % 16 == 4
+        return out
+    return x.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "misaligned", "odd_d"])
+@pytest.mark.parametrize("n", [10, 16])
+def test_median_kernel_bit_equal_every_k(cuda, n, layout):
+    """Every kept count K = 0..n, kept rows a random subset, on the route
+    the layout takes; columns of +0.0/-0.0 ties and of +-inf among them,
+    so the kernel's networks must be the plain version's exactly."""
+    x = _stack_at(n, 40_000, layout, cuda)
+    g = torch.Generator().manual_seed(n)
+    zeros = torch.where(torch.rand((n, 64), generator=g) < 0.5, 0.0, -0.0)
+    x[:, 100:164] = zeros.to(cuda)
+    x[:, 300:364] = torch.where(torch.rand((n, 64), generator=g) < 0.5, float("inf"),
+                                float("-inf")).to(cuda)
+    assert magg.grid_for(x).vec == (4 if layout == "aligned" else 1)
+    for k in range(n + 1):
+        keep = torch.randperm(n, generator=g)[:k]
+        mask = torch.zeros(n, dtype=torch.bool)
+        mask[keep] = True
+        mask = mask.to(cuda)
+        out, ref = magg.masked_median(x, mask), magg.masked_median_plain(x, mask)
+        assert _bit_equal(out, ref), f"K={k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "misaligned", "odd_d"])
+@pytest.mark.parametrize("n", list(range(1, 18)) + [64])
+def test_krum_d2_kernel_every_n(cuda, n, layout):
+    """n = 1..16 take the register Gram at the exact n, 17 and 64 the tile
+    route; within 1e-5 of the squared norms of both the plain version and a
+    float64 gram, and the same selection."""
+    from repro_torch.core.aggregation import _krum_scores_from_d2
+    x = _stack_at(n, 30_001 if n > 16 else 200_000, layout, cuda, seed=n)
+    d2, ref = magg.masked_krum_d2(x), magg.masked_krum_d2_plain(x)
+    x64 = x.double()
+    g64 = x64 @ x64.T
+    q = torch.diagonal(g64)
+    d64 = q[:, None] + q[None, :] - 2.0 * g64
+    scale = q[:, None] + q[None, :]
+    for val in (ref.double(), d64):
+        assert float(((d2.double() - val).abs() / scale).max()) <= 1e-5
+    assert torch.equal(d2, d2.T)
+    for f in (1, 2):
+        mask = torch.ones(n, dtype=torch.bool, device=cuda)
+        assert int(torch.argmin(_krum_scores_from_d2(d2, mask, f))) == \
+            int(torch.argmin(_krum_scores_from_d2(ref, mask, f)))
+
+
+@pytest.mark.cuda
+def test_median_and_krum_d2_replay_in_a_cuda_graph(cuda):
+    """Both wrappers captured once in a CUDA graph: replays equal eager
+    calls, at the captured mask and after another mask is copied into its
+    buffer, so the kept count is read on the device."""
+    n = 10
+    x = _stack(n, 100_000).to(cuda)
+    mask = torch.ones(n, dtype=torch.bool, device=cuda)
+    magg.masked_median(x, mask), magg.masked_krum_d2(x)        # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        med = magg.masked_median(x, mask)
+        d2 = magg.masked_krum_d2(x)
+    for keep in (n, 7, 0, 4):
+        mask.copy_(torch.arange(n, device=cuda) < keep)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bit_equal(med, magg.masked_median(x, mask)), f"K={keep}"
+        assert torch.equal(d2, magg.masked_krum_d2(x))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("clip_tau", [None, 0.7])
 @pytest.mark.parametrize("n,d", [(10, 100_003), (3, 4097)])
