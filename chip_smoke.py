@@ -15,7 +15,8 @@ Phases, each timed with CUDA events:
    ragged ones (N = 3, D not a multiple of a block; k = 1, an even k, all
    rows masked): the median bit-equal, CenteredClip within 3e-5, krum's d2
    selection-equal and within 1e-5 of the squared norms of both its plain
-   version and a float64 gram, decode-accumulate within 1e-6; at full
+   version and a float64 gram, decode-accumulate bit-equal on a 64- and a
+   127-level wire; at full
    width, the masked CenteredClip chain of 3 iterations (the fused
    aggregator's) bit-equal to three single-iteration calls and to a second
    chain, and within 3e-5 of three plain iterations, on every mask, fixed
@@ -69,8 +70,9 @@ Phases, each timed with CUDA events:
    slashed and a conserving ledger;
 5. one more full-width round on each config that reaches the other swarm
    kernels: krum (krum_d2), the compressed-wire scenario's mean over a
-   64-level QSGD wire (decode-accumulate), sign_flip_minority's adaptive-τ
-   CenteredClip;
+   64-level QSGD wire (decode-accumulate; a second round under
+   torch.profiler gives its device time and the decode kernel's share),
+   sign_flip_minority's adaptive-τ CenteredClip;
 6. fused against unfused: one showcase round from the same state with the
    same draws; equal audits and masks, close aggregate and params; then two
    more showcase rounds timed, and one under torch.profiler (device time by
@@ -266,6 +268,12 @@ EXPECTED_LAUNCHES = {
     "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS,
                               "swa_attention": ZAMBA_SHARED * SERVE_PREFILLS},
 }
+
+
+def self_dev(e):
+    """A profiler event's own device ms."""
+    return (getattr(e, "self_device_time_total", None)
+            or getattr(e, "self_cuda_time_total", 0) or 0) / 1e3
 
 
 class PhaseFailed(RuntimeError):
@@ -524,31 +532,39 @@ class Smoke:
             if main_shape:
                 self.record_err("masked_krum_d2", d2, ref)
             print(f"  krum_d2 ok: N={n} D={d}", flush=True)
-            # decode-accumulate on a 64-level wire of x's rows
+            # decode-accumulate on compressed_wire's 64-level wire of x's rows
+            # and on a 127-level one (1/127 is not a power of two, so the
+            # kernel's float32 1/levels is inexact), bit-equal to the plain
+            # version
             nb = -(-d // BUCKET)
-            codes = torch.empty((n, nb * BUCKET), dtype=torch.int8, device=self.dev)
-            norms = torch.empty((n, nb), dtype=torch.float32, device=self.dev)
+            wires = {}
             g = torch.Generator(device=self.dev).manual_seed(7)
-            for i in range(n):
-                u = torch.rand((nb, BUCKET), generator=g, device=self.dev)
-                p = qdec.wire_encode(x[i], u, levels=LEVELS_WIRE, bucket_size=BUCKET)
-                codes[i], norms[i] = p.codes.reshape(-1), p.norms.reshape(-1)
-                del u, p
+            for levels in (LEVELS_WIRE, 127):
+                codes = torch.empty((n, nb * BUCKET), dtype=torch.int8, device=self.dev)
+                norms = torch.empty((n, nb), dtype=torch.float32, device=self.dev)
+                for i in range(n):
+                    u = torch.rand((nb, BUCKET), generator=g, device=self.dev)
+                    p = qdec.wire_encode(x[i], u, levels=levels, bucket_size=BUCKET)
+                    codes[i], norms[i] = p.codes.reshape(-1), p.norms.reshape(-1)
+                    del u, p
+                wires[levels] = codes, norms
             del x
             self.free()
-            for kind in ("all", "k1", "none"):
-                w = self.mask(n, kind).float()
-                o = qdec.decode_accumulate_kernel(codes, norms, w, levels=LEVELS_WIRE,
-                                                  bucket_size=BUCKET)
-                r = qdec.decode_accumulate_plain(codes, norms, w, levels=LEVELS_WIRE,
-                                                 bucket_size=BUCKET)
-                check(bool(((o - r).abs() <= 1e-6 * r.abs().clamp(min=1.0)).all()),
-                      f"decode beyond 1e-6 (N={n}, mask={kind})")
-                if main_shape:
-                    self.record_err("qsgd_decode_accumulate", o, r)
-                del o, r
-            print(f"  decode_accumulate ok: N={n} L={nb * BUCKET}", flush=True)
-            del codes, norms
+            for levels, (codes, norms) in wires.items():
+                for kind in ("all", "k1", "none"):
+                    w = self.mask(n, kind).float()
+                    o = qdec.decode_accumulate_kernel(codes, norms, w, levels=levels,
+                                                      bucket_size=BUCKET)
+                    r = qdec.decode_accumulate_plain(codes, norms, w, levels=levels,
+                                                     bucket_size=BUCKET)
+                    check(self.bit_equal(o, r),
+                          f"decode not bit-equal (N={n}, levels={levels}, mask={kind})")
+                    if main_shape:
+                        self.record_err("qsgd_decode_accumulate", o, r)
+                    del o, r
+                print(f"  decode_accumulate bit-equal: N={n} L={nb * BUCKET} levels={levels}",
+                      flush=True)
+            del codes, norms, wires
             self.free()
 
     def median_every_k(self, x):
@@ -862,6 +878,13 @@ class Smoke:
                   f"{name}: non-finite result")
             print(f"  {name}: 1 round {time.time() - t0:.3f} s, agg_norm "
                   f"{rec['agg_norm']:.4f}, loss {loss:.4f}", flush=True)
+            if name == "compressed_wire":
+                # a second round under the profiler: the round's device
+                # time and the decode kernel's share of it
+                _, events, busy_ms = self.profiled_round(sw, 1)
+                dec_ms = sum(self_dev(e) for e in events if "decode_accumulate" in e.key)
+                print(f"  {name}: profiled round 1, device busy {busy_ms:.1f} ms, "
+                      f"decode_accumulate {dec_ms:.3f} ms of it", flush=True)
             del sw
             self.free()
 
@@ -1053,6 +1076,21 @@ class Smoke:
               flush=True)
         check(rel <= 1e-5, f"the engines' aggregates differ by {rel:.3e} relative L2 (bound 1e-5)")
 
+    def profiled_round(self, sw, r):
+        """Round ``r`` of ``sw`` under torch.profiler: its wall ms (profiler
+        on), its device-side events (kernels, memcpy, memset; the aten::
+        rows repeat their kernels' time) and their summed device ms."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            sw.step(r)
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall_ms, events, sum(self_dev(e) for e in events)
+
     def profile_rounds(self, sw, cc_kernel):
         """Two more showcase rounds of ``sw`` timed on the host clock, then
         one under torch.profiler: device time by kernel and the device's
@@ -1061,7 +1099,6 @@ class Smoke:
         finalize and an apply pass an iteration; the mean device ms of each
         kind is kept for its phase 9 row."""
         torch = self.torch
-        from torch.profiler import ProfilerActivity, profile
         times = []
         for r in (3, 4):
             t0 = time.time()
@@ -1069,21 +1106,7 @@ class Smoke:
             torch.cuda.synchronize()
             times.append(time.time() - t0)
         print(f"  showcase round wall times (no profiler): {times} s", flush=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            sw.step(5)
-            torch.cuda.synchronize()
-            wall_ms = (time.time() - t0) * 1e3
-
-        def self_dev(e):
-            return (getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0) or 0) / 1e3
-
-        # device-side rows only (kernels, memcpy, memset): the aten:: rows
-        # repeat their kernels' time
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(self_dev(e) for e in events)
+        wall_ms, events, busy_ms = self.profiled_round(sw, 5)
         if busy_ms <= 0:
             print("  profiler: no device time recorded (device busy share not "
                   "measured)", flush=True)
@@ -1193,8 +1216,7 @@ class Smoke:
                 host_ms = (time.perf_counter() - t0) * 1e3
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum((getattr(e, "self_device_time_total", None)
-                      or getattr(e, "self_cuda_time_total", 0) or 0) for e in events) / 1e3
+        dev_ms = sum(self_dev(e) for e in events)
         launches = sum(e.count for e in events)
         print(f"  one decode step ({DECODE_PROMPTS} sequences, profiled): {launches} device "
               f"ops, {dev_ms:.2f} ms of device time in {host_ms:.2f} ms", flush=True)
@@ -1536,10 +1558,6 @@ class Smoke:
                 model.prefill(params, batch)
                 torch.cuda.synchronize()
                 host_ms = (time.perf_counter() - t0) * 1e3
-
-        def self_dev(e):
-            return (getattr(e, "self_device_time_total", None)
-                    or getattr(e, "self_cuda_time_total", 0) or 0) / 1e3
 
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]

@@ -28,6 +28,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
+from repro_torch.core.compression import inverse
+
 # both kernel modules import this module back; each side reads the other's
 # names only when called
 from repro_torch.kernels.centered_clip import ops as cc_ops
@@ -43,15 +45,6 @@ def _col_chunks(n: int, d: int):
 
 
 # ------------------------------ dense aggregators ------------------------------
-def inverse(count: int, device) -> torch.Tensor:
-    """A float32 1/count, rounded once.  The dense means multiply their sum
-    by it, as the reference's compiled ``jnp.mean`` does (XLA folds the
-    division by a constant into this multiply); the masked means divide,
-    as theirs do (a traced count)."""
-    return (torch.ones((), dtype=torch.float32, device=device)
-            / torch.full((), float(count), dtype=torch.float32, device=device))
-
-
 def mean(updates: torch.Tensor) -> torch.Tensor:
     x = updates.float()
     return torch.sum(x, dim=0) * inverse(x.shape[0], x.device)

@@ -66,6 +66,27 @@ def bucket_norms(padded: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(padded, dim=1, keepdim=True)
 
 
+def inverse(count: int, device) -> torch.Tensor:
+    """A float32 1/count, rounded once.  Under ``jit`` XLA folds a division
+    by a constant into a multiply by this value, and every reference round
+    runs compiled: the dense means multiply their sum by it, as the
+    reference's compiled ``jnp.mean`` does, and the QSGD decode multiplies
+    each norm by it (:func:`dequantize`).  The masked means divide, as
+    theirs do (a traced count)."""
+    return (torch.ones((), dtype=torch.float32, device=device)
+            / torch.full((), float(count), dtype=torch.float32, device=device))
+
+
+def dequantize(q: torch.Tensor, norms: torch.Tensor, levels: int) -> torch.Tensor:
+    """QSGD codes (int) times their norms (broadcast) over ``levels``, as the
+    compiled reference computes ``q / levels * norm``: XLA rewrites it into
+    q · (norm · r), r = :func:`inverse` (levels), one multiply a norm and
+    one a code.  Equal bit for bit to the reference under ``jax.jit`` at
+    every ``levels``; the eager reference, which divides, differs by an ulp
+    where ``levels`` is not a power of two."""
+    return q.float() * (norms * inverse(levels, norms.device))
+
+
 def quantize(padded: torch.Tensor, norms: torch.Tensor, u: torch.Tensor,
              levels: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stochastic rounding of |x| / norm * levels -> (q int32 in
@@ -95,7 +116,7 @@ def qsgd_compress(x: torch.Tensor, u: torch.Tensor, *, levels: int = 16,
 
 def qsgd_decompress(c: Compressed) -> torch.Tensor:
     p = c.payload
-    mag = p["q"].float() / p["levels"] * p["norms"]
+    mag = dequantize(p["q"], p["norms"], p["levels"])
     out = torch.where(p["sign"], -mag, mag).reshape(-1)[:p["size"]]
     return out.reshape(c.orig_shape)
 

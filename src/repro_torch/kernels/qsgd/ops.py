@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.compression import dequantize
 from repro_torch.kernels import build
 
 LANE = 128
@@ -127,7 +128,7 @@ def qsgd_decode(q: torch.Tensor, norm: torch.Tensor, *, levels: int,
     size = 1
     for d in shape:
         size *= d
-    mag = q.float() / levels * norm
+    mag = dequantize(q, norm, levels)
     return mag.reshape(-1)[:size].reshape(shape)
 
 

@@ -13,11 +13,20 @@ one.
 u, x)`` except that true-sign zero codes decode to +0.0 rather than −0.0
 (numerically equal; every arithmetic consumer is unaffected).
 
+The decode is the compiled reference's, q · (norm · r) with r the float32
+1/levels (``compression.dequantize``): every reference round runs under
+``jit``, where XLA rewrites ``q / levels * norm`` into that form, so
+``wire_decode`` equals ``jax.jit`` of the reference's bit for bit at every
+``levels``.
+
 ``decode_accumulate`` is Σᵢ wᵢ · decode(payloadᵢ) without a decoded
 stack: on a CUDA tensor it launches the kernel of
 ``csrc/qsgd_decode.cu``; on a CPU tensor it runs the plain version,
 :func:`decode_accumulate_plain`, which performs the kernel's arithmetic in
-the same order.
+the same order.  Each node's term is ``wire_decode(payloadᵢ) * wᵢ`` bit
+for bit, summed in node order.  The reference has no exact compiled
+target for the sum (XLA sums the node axis in an order of its own), so the
+accumulator agrees with it within a bound, not bit for bit.
 """
 from __future__ import annotations
 
@@ -26,7 +35,8 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.core.compression import bits_per_element, bucket_norms, pad_buckets
+from repro_torch.core.compression import (bits_per_element, bucket_norms, dequantize,
+                                          inverse, pad_buckets)
 from repro_torch.kernels import build
 from repro_torch.kernels.qsgd import ops as qsgd_ops
 
@@ -68,9 +78,7 @@ def wire_encode(x: torch.Tensor, u: torch.Tensor, *, levels: int = 16,
 
 def _decode_rows(codes: torch.Tensor, norms: torch.Tensor, levels: int,
                  size: int) -> torch.Tensor:
-    # associate like compression.qsgd_decompress — (q/levels)·norm — so the
-    # reconstruction is bit-equal, not merely within an ulp
-    return (codes.float() / levels * norms).reshape(-1)[:size]
+    return dequantize(codes, norms, levels).reshape(-1)[:size]
 
 
 def wire_decode(payload: QsgdPayload) -> torch.Tensor:
@@ -91,13 +99,14 @@ def decode_accumulate_plain(codes: torch.Tensor, norms: torch.Tensor,
                             weights: torch.Tensor, *, levels: int,
                             bucket_size: int) -> torch.Tensor:
     """Plain version of the kernel: (N, L) int8 codes, (N, L/bucket) norms,
-    (N,) weights -> (L,) float32, nodes summed in node order."""
+    (N,) weights -> (L,) float32.  Node i adds (q · sᵢ) · wᵢ, sᵢ = normᵢ ·
+    (1/levels) a bucket, so its term is ``wire_decode``'s value times wᵢ;
+    nodes summed in node order."""
     n, length = codes.shape
     acc = torch.zeros(length, dtype=torch.float32, device=codes.device)
     for i in range(n):
-        dec = (codes[i].reshape(-1, bucket_size).float() / levels
-               * norms[i].reshape(-1, 1)).reshape(-1)
-        acc = acc + dec * weights[i]
+        dec = dequantize(codes[i].reshape(-1, bucket_size), norms[i].reshape(-1, 1), levels)
+        acc = acc + dec.reshape(-1) * weights[i]
     return acc
 
 
@@ -135,9 +144,11 @@ def decode_accumulate_kernel(codes: torch.Tensor, norms: torch.Tensor,
                                                  ctypes.c_int, ctypes.c_float,
                                                  ctypes.c_void_p])
     stream = torch.cuda.current_stream(codes.device).cuda_stream
+    # the kernel multiplies by the plain version's float32 1/levels
+    r = float(inverse(levels, "cpu"))
     build.check(fn(codes.data_ptr(), norms.data_ptr(), weights.data_ptr(),
-                   out.data_ptr(), n, length, bucket_size, float(levels),
-                   stream), "qsgd_decode_accumulate")
+                   out.data_ptr(), n, length, bucket_size, r, stream),
+                "qsgd_decode_accumulate")
     LAUNCHES["qsgd_decode_accumulate"] += 1
     return out
 

@@ -397,6 +397,42 @@ def test_decode_accumulate_kernel_bit_equal(cuda, n, size):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 10, 16, 17])
+@pytest.mark.parametrize("levels", [64, 127, 15, 128])
+def test_decode_accumulate_kernel_bit_equal_at_every_node_count(cuda, levels, n):
+    """Each unrolled node count (1, 10, 16) and the run-time loop (17);
+    levels whose float32 1/levels is inexact (127, 15); and, at 128, codes
+    over the whole int8 range (the kernel's byte-to-float path at every
+    byte).  Negative weights keep sums away from one sign."""
+    g = torch.Generator(device=cuda).manual_seed(levels + n)
+    length, bucket = 4096 * 3, 256
+    lo, hi = (-128, 128) if levels == 128 else (-levels, levels + 1)
+    codes = torch.randint(lo, hi, (n, length), generator=g, dtype=torch.int8, device=cuda)
+    norms = torch.rand((n, length // bucket), generator=g, device=cuda) * 30
+    w = torch.linspace(-0.7, 1.3, n, device=cuda)
+    out = qdec.decode_accumulate_kernel(codes, norms, w, levels=levels, bucket_size=bucket)
+    ref = qdec.decode_accumulate_plain(codes, norms, w, levels=levels, bucket_size=bucket)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [10, 17])
+@pytest.mark.parametrize("bucket", [16, 48, 272, 512])
+def test_decode_accumulate_kernel_bit_equal_across_buckets(cuda, bucket, n):
+    """The kernel finds a group's bucket by a multiply-high: one group a
+    bucket (16), bucket sizes that are not powers of two (48, 272), and the
+    wire's 512; an odd count of buckets."""
+    g = torch.Generator(device=cuda).manual_seed(bucket + n)
+    length = bucket * 37
+    codes = torch.randint(-127, 128, (n, length), generator=g, dtype=torch.int8, device=cuda)
+    norms = torch.rand((n, 37), generator=g, device=cuda) * 30
+    w = torch.linspace(-0.7, 1.3, n, device=cuda)
+    out = qdec.decode_accumulate_kernel(codes, norms, w, levels=127, bucket_size=bucket)
+    ref = qdec.decode_accumulate_plain(codes, norms, w, levels=127, bucket_size=bucket)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("size,bucket,levels,offset", [
     (7, 128, 16, 0), (1000, 1024, 64, 0), (3 * 5 * 17, 128, 127, 0),
     (100_003, 512, 127, 0), (4099, 512, 64, 1),     # x not 16-byte aligned

@@ -8,8 +8,9 @@ numbers to both sides.  Tolerances:
   expressions are the reference's, op for op, in float32);
 - the bucket norms themselves are float sums in another order: 1e-6
   relative;
-- decode is exact given the same codes and norms (same (q / levels) · norm
-  association);
+- decode is exact given the same codes and norms, against the compiled
+  reference (``jax.jit``), whose XLA rewrites (q / levels) · norm into
+  q · (norm · (1/levels)), the port's association;
 - audit decisions are exact (mismatches are compared at 1e-5 relative; the
   cases sit far from the tolerance boundary).
 """
@@ -82,7 +83,7 @@ def test_decode_exact_given_reference_payload(size, levels, bucket):
                              torch.from_numpy(np.array(jpay.norms)),
                              levels=levels, size=size, bucket_size=bucket)
     np.testing.assert_array_equal(tqdec.wire_decode(tpay).numpy(),
-                                  np.asarray(jqdec.wire_decode(jpay)))
+                                  np.asarray(jax.jit(jqdec.wire_decode)(jpay)))
     # the port's own round trip equals its int8 payload's decode
     tx, tu = torch.from_numpy(_x(size)), torch.from_numpy(u)
     np.testing.assert_array_equal(
