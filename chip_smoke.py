@@ -87,6 +87,27 @@ Phases, each timed with CUDA events:
    of the showcase from the same init and seed (so the same draws); equal
    ``n_active``, ``caught`` and minted nodes, the two aggregates within
    1e-5 relative L2;
+10. the §5.5 sweep: ``derailment.sweep`` of the ``no_off_smoke`` grid
+   (mean and CenteredClip against 2 and 6 inner-product attackers beside
+   6 honest nodes, and the honest baseline: 5 lanes of one campaign, 8
+   rounds) on ``launch.problems.tiny_quadratic_problem`` on the card (its
+   CenteredClip lanes through the masked median and the chain) and on the
+   CPU from the same bits: the phase tables equal as strings, each cell's
+   ``derailed`` and ``attackers_slashed`` equal, finite final and baseline
+   losses within 1e-4 relative;
+10b. the same grid as one campaign at protocol-125m's full width (the
+   showcase's problem and AdamW at 5e-3; 5 lanes of N = 12, each round a
+   (12, 162,417,408) float32 stack), rounds cut from 8 to 2: the lanes of
+   mean with 2 attackers and CenteredClip with 6 bit-equal to the
+   single-run Swarm that ``simulate_derailment`` builds for the cell on
+   the sweep's baseline (params, slashed, contrib, the history, the kept
+   rounds) and the sweep's peak memory; then every lane run again alone by
+   ``make_scan_program`` from the same batches, its records and params
+   bit-equal to the campaign's lane and each round timed with CUDA events
+   (the s per lane-round, set-up and evals left out); three more rounds of
+   the CenteredClip Swarm timed and one profiled for the device's busy
+   share of the median round; last the sweep as a user calls it (no
+   lane's params kept), its peak memory, its table and losses equal;
 7. the serving path (``protocol_serve``): ``python -m
    repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
    --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
@@ -168,7 +189,7 @@ Phases, each timed with CUDA events:
    ``flex_attention`` with a sliding-window block mask, zamba2's causal
    triangle against ``scaled_dot_product_attention(is_causal=True)``).
 
-Each driven path (phases 4, 4b, 5, 7, 7c and 7e) has launch counters of its own:
+Each driven path (phases 4, 4b, 5, 7, 7c, 7e, 10 and 10b) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
@@ -182,6 +203,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -223,6 +245,12 @@ CAUSAL_SHAPE = dict(b=1, s=32_768, hq=32, hkv=32, hd=64, window=32_768)
 SWA_ROW_REL = 6e-4
 ZAMBA_PARAMS = 1_170_157_696    # the params built (param_count() says 1,170,155,264)
 ZAMBA_DECODE_LEN = 1_040        # not a multiple of the kernel's 64-token chunk
+# the §5.5 sweep: no_off_smoke (mean and CenteredClip at 2 and 6 attackers
+# beside 6 honest nodes, one seed, and the honest baseline: 5 lanes of N =
+# 12), its 2 CenteredClip lanes; 8 rounds on the tiny quadratic, cut to 2
+# at protocol-125m's full width
+NO_OFF_CC_LANES, NO_OFF_ROUNDS, NO_OFF_ROUNDS_125M = 2, 8, 2
+NO_OFF_LOSS_REL = 1e-4          # card against CPU, finite final and baseline losses
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own[,
 # the launch counter, where the row is the kernel at another path's shape])
@@ -251,6 +279,8 @@ KERNELS = {
                  "src/repro/kernels/mamba2_scan/kernel.py:71", "protocol_serve_zamba2"),
 }
 
+# one fused CenteredClip round (sign_flip_minority's): a median, 3 iterations
+_CC_ROUND = {"masked_median": 1, "masked_cc_iter": CC_ITERS}
 # launches each driven path must make (kernels not named: none).  A
 # CenteredClip round warm-starts from one median and runs 3 iterations; a
 # fused qsgd round encodes each node's row once.
@@ -262,7 +292,15 @@ EXPECTED_LAUNCHES = {
                             "cc_iter": 3 * SHOWCASE_ROUNDS},
     "krum": {"masked_krum_d2": 1},
     "compressed_wire": {"qsgd_decode_accumulate": 1, "qsgd_encode": N_NODES},
-    "sign_flip_minority": {"masked_median": 1, "masked_cc_iter": 3},
+    "sign_flip_minority": _CC_ROUND,
+    # the no_off_smoke sweep: its 2 CenteredClip lanes take a sign_flip_minority
+    # round's launches each round; mean lanes and the baseline launch none
+    "no_off_smoke": {k: NO_OFF_CC_LANES * NO_OFF_ROUNDS * v
+                     for k, v in _CC_ROUND.items()},
+    # at full width, 2 rounds: the sweep's 2 CenteredClip lanes, then the
+    # CenteredClip cell's single-run Swarm (the mean cell's launches none)
+    "no_off_smoke_125m": {k: (NO_OFF_CC_LANES + 1) * NO_OFF_ROUNDS_125M * v
+                          for k, v in _CC_ROUND.items()},
     "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
     "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
     "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS,
@@ -405,6 +443,12 @@ class Smoke:
         self.free()
         self.phase("6c sequential vs batched engine, round 0 (full width)",
                    lambda: self.engines_agree(main_out))
+        main_out.pop("swarm")
+        self.free()
+        self.phase("10 no_off_smoke on the tiny quadratic, card vs CPU", self.no_off_smoke)
+        torch.cuda.reset_peak_memory_stats()
+        self.phase("10b no_off_smoke campaign on protocol-125m (full width)",
+                   lambda: self.campaign_full_width(main_out["problem"]))
         del main_out
         self.free()
         torch.cuda.reset_peak_memory_stats()
@@ -1075,6 +1119,226 @@ class Smoke:
               f"agg_norm {rb['agg_norm']:.6f} vs {rs['agg_norm']:.6f} (gap {gap:.3e})",
               flush=True)
         check(rel <= 1e-5, f"the engines' aggregates differ by {rel:.3e} relative L2 (bound 1e-5)")
+
+    def no_off_smoke(self):
+        """Phase 10: the ``no_off_smoke`` sweep on the tiny quadratic, on the
+        card (its CenteredClip lanes through the kernels, on counters of
+        their own) and on the CPU (the unfused plain path) from the same
+        bits: the phase tables equal as strings, each cell's discrete
+        fields equal, finite final and baseline losses within
+        NO_OFF_LOSS_REL relative, a non-finite loss non-finite on both."""
+        from repro_torch.core import derailment, scenarios
+        from repro_torch.launch import problems
+        grid = scenarios.get_sweep_grid("no_off_smoke")
+
+        def run(device):
+            loss_fn, params, data_fn, eval_fn, opt = problems.tiny_quadratic_problem(
+                device=device)
+            return derailment.sweep(loss_fn, params, opt, data_fn, eval_fn, grid)
+
+        card = self.counted("no_off_smoke", lambda: run("cuda"))
+        cpu = run("cpu")
+        table = card.phase_table()
+        print("  no_off_smoke phase table on the card (tiny quadratic, 16 params, "
+              f"{card.n_runs} lanes, {grid.rounds} rounds, {card.wall_s:.3f} s):\n"
+              + "\n".join("    " + line for line in table.splitlines()), flush=True)
+        check(table == cpu.phase_table(),
+              f"phase tables differ, card:\n{table}\nCPU:\n{cpu.phase_table()}")
+        worst = 0.0
+        for a, b in zip(card.results, cpu.results):
+            for field in ("regime", "n_attackers", "derailed", "attackers_slashed"):
+                check(getattr(a, field) == getattr(b, field),
+                      f"{field} differs card vs CPU: {a} / {b}")
+            for field in ("final_loss", "baseline_loss"):
+                x, y = getattr(a, field), getattr(b, field)
+                check(math.isfinite(x) == math.isfinite(y), f"{field} finite on one side: {a}")
+                if math.isfinite(y):
+                    rel = abs(x - y) / max(abs(y), 1e-30)
+                    worst = max(worst, rel)
+                    check(rel <= NO_OFF_LOSS_REL, f"{field} {x} vs {y}, rel {rel:.3e}")
+        print(f"  card vs CPU: tables equal, discrete fields equal, losses within "
+              f"{worst:.3e} relative (bound {NO_OFF_LOSS_REL:g}); final losses "
+              f"{[r.final_loss for r in card.results]}", flush=True)
+
+    def campaign_full_width(self, problem):
+        """Phase 10b: ``no_off_smoke`` as one campaign at protocol-125m's
+        full width (the showcase's problem and AdamW at 5e-3, a global
+        batch of 2N), rounds cut to NO_OFF_ROUNDS_125M; two of its lanes
+        bit-equal to the single-run Swarm that ``simulate_derailment``
+        builds for the same cell on the sweep's baseline.  Then each lane
+        run alone and its rounds timed (``lane_rounds``), and the
+        CenteredClip Swarm's busy share (``busy_share``)."""
+        torch = self.torch
+        from repro_torch.core import derailment, scenarios
+        from repro_torch.data.pipeline import model_batch
+        from repro_torch.optim.optimizer import AdamW
+        grid = scenarios.get_sweep_grid("no_off_smoke")
+        n = grid.n_honest + max(grid.attacker_counts)
+        data_fn = problem.data_fn(n)
+        eval_batch = model_batch(problem.cfg, problem.data_cfg(n), 10**6,
+                                 device=problem.device)
+
+        def eval_fn(params):
+            return problem.loss_fn(params, eval_batch)
+
+        args = (problem.loss_fn, problem.params, AdamW(lr=5e-3), data_fn, eval_fn)
+        print(f"  no_off_smoke_125m: {grid.n_lanes} lanes of N = {n} (a ({n}, {D_FULL:,}) "
+              f"float32 stack, {n * D_FULL * 4 / 1e9:.1f} GB, a lane-round); rounds cut "
+              f"from {grid.rounds} to {NO_OFF_ROUNDS_125M}", flush=True)
+        cells = {("mean", 2), ("centered_clip", 6)}
+        held = {}
+
+        def body():
+            t0 = time.time()
+            res, campaign = derailment.sweep(*args, grid, rounds=NO_OFF_ROUNDS_125M,
+                                             return_campaign=True)
+            torch.cuda.synchronize()
+            held["sweep_s"] = time.time() - t0
+            held["peak"] = torch.cuda.max_memory_allocated()
+            held["campaign"] = campaign
+            for j, r in enumerate(res.results):
+                if (r.aggregator, r.n_attackers) in cells:
+                    t0 = time.time()
+                    single, sw = derailment.simulate_derailment(
+                        *args, n_honest=grid.n_honest, n_attack=r.n_attackers,
+                        rounds=NO_OFF_ROUNDS_125M, aggregator=r.aggregator, seed=r.seed,
+                        baseline_loss=r.baseline_loss, return_swarm=True)
+                    torch.cuda.synchronize()
+                    print(f"  simulate_derailment({r.aggregator}, {r.n_attackers} attackers): "
+                          f"{time.time() - t0:.3f} s ({NO_OFF_ROUNDS_125M} rounds, "
+                          f"{NO_OFF_ROUNDS_125M + 1} evals)", flush=True)
+                    self.lane_vs_swarm(campaign, j, r, single, sw)
+                    held["swarm"] = sw
+            return res
+
+        res = self.counted("no_off_smoke_125m", body)
+        print("  no_off_smoke_125m phase table (2 rounds):\n"
+              + "\n".join("    " + line for line in res.phase_table().splitlines()), flush=True)
+        check(all(math.isfinite(r.final_loss) and math.isfinite(r.baseline_loss)
+                  for r in res.results), "non-finite loss at full width")
+        print(f"  no_off_smoke_125m: sweep {held['sweep_s']:.3f} s on the host clock "
+              f"(set-up, {res.n_runs} lanes x {NO_OFF_ROUNDS_125M} rounds and "
+              f"{res.n_runs + 1} evals); max_memory_allocated {held['peak'] / 2**30:.2f} GiB "
+              "(sweep)", flush=True)
+        self.lane_rounds(args, grid, n, held.pop("campaign"))
+        self.busy_share(held.pop("swarm"), n)
+        torch.cuda.reset_peak_memory_stats()
+        again = derailment.sweep(*args, grid, rounds=NO_OFF_ROUNDS_125M)
+        peak = torch.cuda.max_memory_allocated()
+        check(again.phase_table() == res.phase_table()
+              and [r.final_loss for r in again.results] == [r.final_loss for r in res.results],
+              "the sweep without its campaign's outputs differs from the one with them")
+        print(f"  no_off_smoke_125m without return_campaign (no lane's params kept): "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB; table and final losses "
+              "equal to the first sweep's", flush=True)
+
+    def lane_rounds(self, args, grid, n, campaign):
+        """Every lane of the 10b campaign run alone by ``make_scan_program``
+        (no eval) from the batches the sweep saw, made before the clock
+        starts: its records and final params bit-equal to the campaign's
+        lane, and each round timed with CUDA events (an event recorded as
+        the loop asks for the round's batches, one after the loop)."""
+        torch = self.torch
+        from repro_torch.core import derailment
+        from repro_torch.core import swarm as tswarm
+        loss_fn, params0, opt, data_fn, _ = args
+        spec = derailment.build_sweep_lanes(grid)
+        lanes = tswarm.stack_lanes(spec.lanes, device=self.dev)
+        round_fn = tswarm.make_round_fn(loss_fn, opt, params0, n, aggregator=spec.aggregator,
+                                        agg_kwargs=spec.agg_kwargs, verify=spec.verify)
+        batches = [[data_fn(i, r) for i in range(n)] for r in range(NO_OFF_ROUNDS_125M)]
+        state, recs, _ = campaign
+        times = []
+        for k in range(lanes.n_lanes):
+            marks = []
+
+            def batch_fn(r):
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+                return batches[r]
+
+            run = tswarm.make_scan_program(round_fn, batch_fn, NO_OFF_ROUNDS_125M)
+            one_state, one_recs, _ = run(lanes.lane(k), *tswarm.init_state(params0, opt, n))
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            times.append(ms)
+            for field in tswarm.RoundRecord._fields:
+                a, b = getattr(recs, field)[k], getattr(one_recs, field)
+                check(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                                  b.view(torch.int32) if b.dtype == torch.float32 else b),
+                      f"lane {k}: RoundRecord.{field} differs campaign vs scan program")
+            for name, p in one_state.params.items():
+                bits = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
+                check(torch.equal(state.params[name][k].view(bits), p.view(bits)),
+                      f"lane {k}: params[{name}] differ campaign vs scan program")
+            agg = spec.agg_specs[spec.lanes[k].agg_id][0]
+            print(f"  lane {k} ({agg}) alone: rounds {[round(x, 1) for x in ms]} ms on CUDA "
+                  "events; records and params bit-equal to the campaign's lane", flush=True)
+            del one_state, one_recs, run
+        flat = sorted(x for ms in times for x in ms)
+        med = statistics.median(flat)
+        print(f"  s per lane-round: median {med / 1e3:.4f} s over {len(flat)} lane-rounds, "
+              f"min {flat[0] / 1e3:.4f}, max {flat[-1] / 1e3:.4f} (CUDA events around each "
+              "round of the scan loop; set-up and evals excluded)", flush=True)
+
+    def busy_share(self, sw, n):
+        """Three more rounds of the CenteredClip cell's Swarm (N = ``n``)
+        timed with CUDA events, then one under torch.profiler: the device's
+        busy share of the median unprofiled round."""
+        torch = self.torch
+        ms = []
+        for r in range(NO_OFF_ROUNDS_125M, NO_OFF_ROUNDS_125M + 3):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            sw.step(r)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        med = statistics.median(ms)
+        t0 = time.time()
+        wall_ms, events, busy_ms = self.profiled_round(sw, NO_OFF_ROUNDS_125M + 3)
+        print(f"  the profiled lane-round took {time.time() - t0:.1f} s with the "
+              "profiler's own processing", flush=True)
+        share = f"{busy_ms / med:.1%}" if busy_ms > 0 else "not measured"
+        print(f"  a lane-round (centered_clip, N = {n}): unprofiled {[round(x, 1) for x in ms]} "
+              f"ms on CUDA events, median {med:.1f} (spread {max(ms) - min(ms):.1f}); profiled "
+              f"{wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms = {share} of the median "
+              "round", flush=True)
+
+    def lane_vs_swarm(self, campaign, j, r, single, sw):
+        """Lane ``j`` of a sweep's campaign against the single-run Swarm of
+        its cell (N = 6 + count rows; the lane's padding rows beyond them
+        never join): params, slashed and contrib bit-equal, the history
+        equal (every RoundRecord field but ``keep``, read to the host as
+        the Swarm reads it), each node's kept rounds its contrib, the final
+        loss equal."""
+        torch = self.torch
+        from repro_torch.core import swarm as tswarm
+        state, recs, final = campaign
+        m = len(sw.nodes)
+        what = f"{r.aggregator} with {r.n_attackers} attackers"
+        for k, p in sw.params.items():
+            bits = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
+            check(torch.equal(state.params[k][j].view(bits), p.view(bits)),
+                  f"{what}: params[{k}] differ lane vs Swarm")
+        slashed = torch.tensor([x.node_id in sw.slashed for x in sw.nodes], device=self.dev)
+        kept = recs.keep[j].float().sum(0)
+        for name, lane, one in (("slashed", state.slashed[j], slashed),
+                                ("contrib", state.contrib[j], sw.contrib),
+                                ("kept rounds", kept, sw.contrib)):
+            check(torch.equal(lane[:m], one) and not lane[m:].any(),
+                  f"{what}: {name} differs lane vs Swarm")
+        ids = [x.node_id for x in sw.nodes] + [f"pad{i}" for i in range(m, len(kept))]
+        history = [{k: v for k, v in row.items() if k != "eval_loss"} for row in sw.history]
+        check(tswarm.history_from_records(tswarm.lane_slice(recs, j), ids) == history,
+              f"{what}: history differs lane vs Swarm")
+        check(float(final[j]) == single.final_loss == r.final_loss,
+              f"{what}: final loss {float(final[j])} vs Swarm {single.final_loss}")
+        print(f"  lane {j} ({what}, N = {state.slashed.shape[1]}) bit-equal to its "
+              f"single-run Swarm (N = {m}): params, slashed, contrib, kept rounds, "
+              f"history; final loss {r.final_loss:.6f}", flush=True)
 
     def profiled_round(self, sw, r):
         """Round ``r`` of ``sw`` under torch.profiler: its wall ms (profiler

@@ -147,8 +147,15 @@ def _masked_median(updates: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def masked_mean(updates: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Σᵢ mᵢ·xᵢ / k, the rows added one by one in node order, so rows that
+    are masked out after the last kept one change no bit: a sweep's lane
+    padded with never-joining nodes gives its single-run swarm's mean."""
+    m = mask.to(updates.dtype)
     k = torch.clamp(torch.sum(mask.float()), min=1.0)
-    return torch.sum(updates * mask[:, None].to(updates.dtype), dim=0) / k
+    acc = updates[0] * m[0]
+    for i in range(1, updates.shape[0]):
+        acc = torch.addcmul(acc, updates[i], m[i])
+    return acc / k
 
 
 def _krum_scores_from_d2(d2: torch.Tensor, mask: torch.Tensor,

@@ -1,0 +1,478 @@
+"""The No-Off Problem & model-derailment attacks (paper §5.5; twin of
+``repro/core/derailment.py``).
+
+A decentralized model cannot be unilaterally halted.  The one *digital*
+emergency brake is a derailment attack — joining the swarm and submitting
+destructive gradients.  Its effectiveness depends on the aggregation rule
+and the verification regime:
+
+- mean aggregation + no verification  → tiny attacker fractions derail
+  (the off-switch works, but so does any vandal);
+- robust aggregation                  → derailment needs ≥ breakdown-point
+  fraction of the swarm;
+- near-perfect cheap verification     → derailment is slashed away faster
+  than it damages; the paper concludes only physical intervention remains.
+
+``simulate_derailment`` measures one point on a real training run;
+``sweep`` measures the whole **phase diagram** — every (attacker count,
+scale, seed) cell of every (aggregator, verification) regime of a
+``scenarios.SweepGrid``, plus an honest baseline per seed — as the lanes of
+one ``swarm.run_campaign``, the regimes routed by each lane's aggregator id
+and audit rate.  ``attack_cost`` prices the attack (compute + slashed
+stakes); ``no_off_report`` renders the table row by row.
+
+The reference's later axes raise ``NotImplementedError`` naming their
+ROADMAP queue 1 item where a sweep reaches them: topologies (8), staleness
+bounds (9), custody and the extractability table (7), the economy axes and
+their tables (10), and a ``MeshPlan`` placement (13).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.scenarios import Regime, SweepGrid
+from repro_torch.core.swarm import (
+    BEHAVIOUR_CODES,
+    LaneParams,
+    NodeSpec,
+    SwarmConfig,
+    make_swarm,
+    run_campaign,
+    stack_lanes,
+)
+from repro_torch.core.verification import VerificationConfig
+
+_FAR = int(np.iinfo(np.int32).max)
+
+
+@dataclass(frozen=True)
+class DerailmentResult:
+    attacker_fraction: float
+    aggregator: str
+    verified: bool
+    final_loss: float
+    baseline_loss: float
+    attackers_slashed: int
+    n_attackers: int
+    init_loss: Optional[float] = None
+    seed: int = 0
+    regime: str = ""
+    topology: str = ""      # "" = centralized; else a core.topology name
+    staleness_bound: int = 0   # 0 = synchronous round; K = async, ring of K+1
+    # -- custody axis (redundancy == 0 means the sweep had no custody lane)
+    redundancy: int = 0
+    coalition_fraction: float = 0.0
+    coalition_coverage: float = 1.0   # shard fraction the coalition holds
+    final_coverage: float = 1.0       # live swarm coverage at the last round
+    extracted_loss: float = float("nan")  # reconstruct-attack eval loss
+
+    @property
+    def extractability(self) -> str:
+        """The §4.1 regime of this cell ("" when no custody axis):
+
+        - ``extractable``: the coalition covers every shard — custody
+          failed, the reassembled model IS the model;
+        - ``degraded``: the coalition cannot extract, but churn/slashing
+          drained some shard's last live holder — nobody (including the
+          swarm itself) holds the full model any more;
+        - ``protocol_model``: the coalition is below full coverage and the
+          swarm retains every shard — the §4.1 custody property holds.
+        """
+        if self.redundancy == 0:
+            return ""
+        if self.coalition_coverage >= 1.0 - 1e-9:
+            return "extractable"
+        if self.final_coverage < 1.0 - 1e-9:
+            return "degraded"
+        return "protocol_model"
+
+    @property
+    def derailed(self) -> bool:
+        """Derailed = the run recovered less than half the honest learning
+        progress (catches both divergence AND saturation-stall attacks,
+        where the loss freezes near init while gradients vanish)."""
+        if not np.isfinite(self.final_loss):
+            return True
+        if self.init_loss is not None and np.isfinite(self.init_loss) \
+                and self.init_loss > self.baseline_loss:
+            half = self.baseline_loss + 0.5 * (self.init_loss - self.baseline_loss)
+            return bool(self.final_loss > half)
+        return bool(self.final_loss > 1.5 * self.baseline_loss + 0.5)
+
+
+def make_swarm_nodes(n_honest: int, n_attack: int, attack: str = "inner_product",
+                     scale: float = 50.0, delay: int = 0):
+    nodes = [NodeSpec(f"h{i}", delay=delay) for i in range(n_honest)]
+    nodes += [NodeSpec(f"adv{i}", byzantine=attack, byzantine_scale=scale,
+                       delay=delay)
+              for i in range(n_attack)]
+    return nodes
+
+
+def _eval(eval_fn: Callable, params) -> float:
+    with torch.no_grad():
+        return float(eval_fn(params))
+
+
+def simulate_derailment(loss_fn, init_params, optimizer, data_fn, eval_fn, *,
+                        n_honest: int, n_attack: int, rounds: int,
+                        aggregator: str = "mean",
+                        verification: Optional[VerificationConfig] = None,
+                        attack: str = "inner_product", scale: float = 50.0,
+                        baseline_loss: Optional[float] = None,
+                        topology: Optional[str] = None,
+                        staleness_bound: int = 0,
+                        seed: int = 0, engine: str = "batched",
+                        return_swarm: bool = False):
+    """Measure a single derailment point.
+
+    Pass ``baseline_loss`` when sweeping many points against one honest
+    baseline — otherwise *each call* re-trains the honest swarm from
+    scratch.  ``engine`` is ``"batched"`` or ``"sequential"``.
+    ``topology`` (item 8) and ``staleness_bound`` (item 9) raise through
+    ``SwarmConfig``.  ``return_swarm=True`` returns ``(result, swarm)``,
+    the attacked swarm after its run.  For whole phase diagrams use
+    :func:`sweep`, which shares the baseline and runs every point of every
+    regime as one campaign.
+    """
+    init_loss = _eval(eval_fn, init_params)
+    nodes = make_swarm_nodes(n_honest, n_attack, attack, scale,
+                             delay=staleness_bound)
+    cfg = SwarmConfig(aggregator=aggregator, verification=verification, seed=seed,
+                      topology=topology, staleness_bound=staleness_bound,
+                      agg_kwargs={"f": max(1, n_attack)} if "krum" in aggregator else {})
+    swarm = make_swarm(loss_fn, init_params, optimizer, nodes, cfg, data_fn,
+                       engine=engine)
+    losses = swarm.run(rounds, eval_fn=eval_fn, eval_every=max(1, rounds // 5))
+
+    if baseline_loss is None:
+        base_nodes = [NodeSpec(f"h{i}", delay=staleness_bound)
+                      for i in range(n_honest)]
+        base = make_swarm(loss_fn, init_params, optimizer, base_nodes,
+                          SwarmConfig(aggregator="mean", seed=seed,
+                                      topology=topology,
+                                      staleness_bound=staleness_bound),
+                          data_fn, engine=engine)
+        baseline_loss = base.run(rounds, eval_fn=eval_fn, eval_every=rounds)[-1]
+
+    result = DerailmentResult(
+        attacker_fraction=n_attack / (n_honest + n_attack),
+        aggregator=aggregator,
+        verified=verification is not None,
+        final_loss=losses[-1],
+        baseline_loss=baseline_loss,
+        attackers_slashed=sum(1 for s in swarm.slashed if s.startswith("adv")),
+        n_attackers=n_attack,
+        init_loss=init_loss,
+        seed=seed,
+        regime=aggregator + ("+verified" if verification else ""),
+        topology=topology or "",
+        staleness_bound=staleness_bound,
+    )
+    return (result, swarm) if return_swarm else result
+
+
+# -- the phase-diagram sweep -----------------------------------------------------
+@dataclass
+class SweepResult:
+    """Every cell of a :class:`~repro_torch.core.scenarios.SweepGrid`, plus
+    how it ran (``n_programs`` campaigns for ``n_runs`` runs — baseline
+    lanes included) and how long the whole sweep took."""
+    grid: SweepGrid
+    results: List[DerailmentResult]
+    n_programs: int
+    n_runs: int
+    wall_s: float
+
+    @property
+    def runs_per_s(self) -> float:
+        return self.n_runs / max(self.wall_s, 1e-9)
+
+    def economy_phase_table(self, regime: str, *, adaptive: bool = False) -> str:
+        raise NotImplementedError("the economy phase table is not ported yet "
+                                  "(ROADMAP queue 1, item 10)")
+
+    def economy_adaptive_gap(self) -> Dict[str, float]:
+        raise NotImplementedError("the economy adaptive gap is not ported yet "
+                                  "(ROADMAP queue 1, item 10)")
+
+    def extractability_table(self) -> str:
+        raise NotImplementedError("the extractability table is not ported yet "
+                                  "(ROADMAP queue 1, item 7)")
+
+    def phase_table(self) -> str:
+        """The §5.5 phase diagram: derailed-seed counts per (regime [,
+        topology][, staleness bound], attacker fraction) cell,
+        attackers-slashed appended when any.  (The topology and staleness
+        labels follow the reference's layout; no port sweep has those axes
+        yet.)"""
+        fracs = sorted({r.attacker_fraction for r in self.results})
+        sbounds: Tuple = self.grid.staleness_bounds or (None,)
+        rows: List[Tuple[str, str, Optional[int]]] = []
+        for reg in self.grid.regimes:
+            for topo in (self.grid.topologies or ("",)):
+                for sb in sbounds:
+                    if any(r.regime == reg.name and r.topology == topo
+                           and (sb is None or r.staleness_bound == sb)
+                           for r in self.results):
+                        rows.append((reg.name, topo, sb))
+        labels = [reg + (f"@{topo}" if topo else "")
+                  + (f" s={sb}" if sb is not None else "")
+                  for reg, topo, sb in rows]
+        width = max([22] + [len(l) + 2 for l in labels])
+        head = "regime".ljust(width) + "".join(f"frac={f:.2f}".rjust(12)
+                                               for f in fracs)
+        lines = [head]
+        for (reg, topo, sb), label in zip(rows, labels):
+            cells = []
+            for f in fracs:
+                cell = [r for r in self.results
+                        if r.regime == reg and r.topology == topo
+                        and (sb is None or r.staleness_bound == sb)
+                        and abs(r.attacker_fraction - f) < 1e-9]
+                if not cell:
+                    cells.append("-".rjust(12))
+                    continue
+                der = sum(r.derailed for r in cell)
+                txt = f"{der}/{len(cell)}"
+                slashed = sum(r.attackers_slashed for r in cell)
+                if slashed:
+                    txt += f" s{slashed}"
+                cells.append(txt.rjust(12))
+            lines.append(label.ljust(width) + "".join(cells))
+        return "\n".join(lines)
+
+
+def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
+                scale: float, seed: int,
+                v: Optional[VerificationConfig],
+                agg_id: int, agg_kwargs: Dict) -> LaneParams:
+    """One run lane: honest nodes first, ``count`` attackers, then padding
+    that never joins (all regimes share a fixed N so they run as one
+    campaign).  Node indices — and therefore the ``(seed, purpose, round,
+    node)`` draws — match the single-run ``Swarm`` built by
+    ``simulate_derailment`` exactly.  Roster fields are host (numpy)
+    arrays: ``stack_lanes`` moves each stacked field to the device once."""
+    codes = np.zeros(n_total, np.int32)
+    codes[n_honest:n_honest + count] = code
+    scales = np.full(n_total, 10.0, np.float32)     # NodeSpec default
+    scales[n_honest:n_honest + count] = scale
+    joins = np.zeros(n_total, np.int32)
+    joins[n_honest + count:] = _FAR                  # padding: never active
+    return LaneParams(
+        codes=codes,
+        scales=scales,
+        speeds=np.ones(n_total, np.float32),
+        joins=joins,
+        leaves=np.full(n_total, _FAR, np.int32),
+        seed=int(seed),
+        p_check=float(v.p_check) if v else 0.0,
+        tolerance=float(v.tolerance) if v else 1.0,
+        numeric_noise=float(v.numeric_noise) if v else 0.0,
+        agg_kwargs={k: np.asarray(x) for k, x in agg_kwargs.items()},
+        agg_id=int(agg_id),
+    )
+
+
+@dataclass
+class SweepProgramSpec:
+    """Everything :func:`sweep` feeds the campaign engine, built without
+    running anything: the lane list (host arrays — ``swarm.stack_lanes``
+    moves them to the device once), per-lane metadata, the shared
+    aggregator set."""
+    lanes: List[LaneParams]
+    metas: List[tuple]
+    agg_specs: List[Tuple[str, Dict]]
+    verify: bool
+    n_honest: int
+    n_total: int
+
+    @property
+    def aggregator(self):
+        """The ``aggregator`` argument for ``run_campaign`` — the full
+        (name, kwargs) set when several regimes share the campaign."""
+        return (self.agg_specs if len(self.agg_specs) > 1
+                else self.agg_specs[0][0])
+
+    @property
+    def agg_kwargs(self) -> Optional[Dict]:
+        return self.agg_specs[0][1] if len(self.agg_specs) == 1 else None
+
+
+#: a SweepGrid's later-axis fields -> the ROADMAP queue 1 item each waits for
+_GRID_AXES = (("topologies", 8), ("staleness_bounds", 9), ("redundancies", 7),
+              ("coalition_fractions", 7), ("identity_costs", 10), ("fees", 10),
+              ("reward_schedules", 10), ("adaptive", 10))
+
+
+def _refuse_later_axes(grid: SweepGrid) -> None:
+    for name, item in _GRID_AXES:
+        if getattr(grid, name):
+            raise NotImplementedError(
+                f"sweep grid {grid.name!r}: SweepGrid.{name} is not ported yet "
+                f"(ROADMAP queue 1, item {item})")
+
+
+def build_sweep_lanes(grid: SweepGrid) -> SweepProgramSpec:
+    """Build every lane of a :class:`~repro_torch.core.scenarios.SweepGrid`'s
+    phase diagram — the grid cells, plus the shared honest baselines —
+    without running anything.  See :class:`SweepProgramSpec`.  The lanes,
+    their order and their metadata are the reference's for every grid of
+    the centralized synchronous round."""
+    _refuse_later_axes(grid)
+    n_honest = grid.n_honest
+    n_total = n_honest + max(grid.attacker_counts)
+    code = BEHAVIOUR_CODES[grid.attack]
+
+    # the aggregator set shared by the campaign; the honest baseline is a
+    # mean-aggregated run, so make sure plain mean is in the set
+    agg_specs: List[Tuple[str, Dict]] = []
+    agg_index: Dict[Tuple, int] = {}
+    for reg in list(grid.regimes) + [Regime("baseline", "mean")]:
+        key = (reg.aggregator, tuple(sorted(reg.agg_kwargs.items())))
+        if key not in agg_index:
+            agg_index[key] = len(agg_specs)
+            agg_specs.append((reg.aggregator, dict(reg.agg_kwargs)))
+    # krum aggregators read a per-run f (tracking the attacker count, as
+    # simulate_derailment does); the lane kwargs must then be present on
+    # every lane, and routing hands f only to the aggregators that take it
+    need_f = any("krum" in name and "f" not in kw for name, kw in agg_specs)
+
+    def lane_kw(count):
+        return {"f": max(1, count)} if need_f else {}
+
+    lanes, metas = [], []
+    for reg in grid.regimes:
+        aid = agg_index[(reg.aggregator, tuple(sorted(reg.agg_kwargs.items())))]
+        for count in grid.attacker_counts:
+            for scale in grid.scales:
+                for seed in grid.seeds:
+                    lanes.append(_sweep_lane(n_total, n_honest, count, code, scale,
+                                             seed, reg.verification, aid,
+                                             lane_kw(count)))
+                    metas.append((reg, "", 0, 0, 0.0, count, scale, seed,
+                                  None, None, None, None))
+    for seed in grid.seeds:              # baseline lanes (count = 0), one a seed
+        lanes.append(_sweep_lane(n_total, n_honest, 0, code, 0.0, seed, None,
+                                 agg_index[("mean", ())], lane_kw(0)))
+        metas.append((None, "", 0, 0, 0.0, 0, 0.0, seed, None, None, None, False))
+
+    return SweepProgramSpec(
+        lanes=lanes, metas=metas, agg_specs=agg_specs,
+        verify=any(reg.verification is not None for reg in grid.regimes),
+        n_honest=n_honest, n_total=n_total)
+
+
+def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
+          grid: SweepGrid, *, rounds: Optional[int] = None,
+          fast_compile: Optional[bool] = None, plan=None,
+          return_campaign: bool = False):
+    """Measure a whole §5.5 phase diagram as **one** campaign.
+
+    Every (regime × attacker count × scale × seed) cell is a lane:
+    verification differences ride in the lanes' ``p_check`` / ``tolerance``
+    (``p_check = 0`` disables audits), aggregator differences in their
+    ``agg_id`` over the round's aggregator set, and the honest baseline
+    rides along as extra ``count = 0`` lanes, one per seed.  Lane building
+    lives in :func:`build_sweep_lanes`.  Each result lane reproduces the
+    single-point :func:`simulate_derailment` run for the same parameters.
+
+    ``fast_compile`` is the reference's XLA option, accepted and unused
+    (the port compiles nothing).  ``plan`` (a ``MeshPlan``) waits for the
+    distributed layer (item 13); a grid with a later axis raises its item.
+    ``return_campaign=True`` returns ``(result, (state, records, final
+    losses))``, the campaign's own outputs, lane j the j-th of
+    :func:`build_sweep_lanes` (the cells in ``results`` order, then the
+    baselines); without it the campaign keeps no lane's params or
+    optimizer state past the lane's end (``keep_params=False``).
+    """
+    if plan is not None:
+        raise NotImplementedError("a MeshPlan placement is not ported yet "
+                                  "(ROADMAP queue 1, item 13)")
+    rounds = grid.rounds if rounds is None else rounds
+    t0 = time.perf_counter()
+    spec = build_sweep_lanes(grid)
+    init_loss = _eval(eval_fn, init_params)
+    n_honest = spec.n_honest
+    device = next(iter(init_params.values())).device
+
+    state, recs, final = run_campaign(
+        loss_fn, init_params, optimizer, data_fn,
+        stack_lanes(spec.lanes, device=device), rounds=rounds,
+        aggregator=spec.aggregator, agg_kwargs=spec.agg_kwargs,
+        verify=spec.verify, eval_fn=eval_fn, fast_compile=bool(fast_compile),
+        keep_params=return_campaign)
+    campaign = (state, recs, final) if return_campaign else None
+    slashed = state.slashed.cpu().numpy()
+    del state, recs
+    final = final.cpu().numpy()
+
+    baselines: Dict[int, float] = {}
+    cells = []
+    for j, (reg, _, _, _, _, count, scale, seed, *_) in enumerate(spec.metas):
+        if reg is None:
+            baselines[seed] = float(final[j])
+        else:
+            cells.append((j, reg, count, seed))
+    results = [DerailmentResult(
+        attacker_fraction=count / (n_honest + count) if count else 0.0,
+        aggregator=reg.aggregator,
+        verified=reg.verification is not None,
+        final_loss=float(final[j]),
+        baseline_loss=baselines[seed],
+        attackers_slashed=int(slashed[j, n_honest:n_honest + count].sum()),
+        n_attackers=count,
+        init_loss=init_loss,
+        seed=seed,
+        regime=reg.name,
+    ) for j, reg, count, seed in cells]
+    result = SweepResult(grid=grid, results=results, n_programs=1,
+                         n_runs=len(spec.lanes), wall_s=time.perf_counter() - t0)
+    return (result, campaign) if return_campaign else result
+
+
+# -- economics -------------------------------------------------------------------
+def attack_cost(n_attackers: int, rounds: int, *, compute_cost_per_round: float,
+                verification: Optional[VerificationConfig]) -> float:
+    """Price of running the derailment: compute + expected slashed stakes.
+
+    With stake/slash verification each attacker's stake is destroyed with
+    prob p_check each round; expected rounds to slash = 1/p_check, so the
+    attacker re-stakes ~ rounds·p_check times.
+    """
+    compute = n_attackers * rounds * compute_cost_per_round
+    if verification is None:
+        return compute
+    expected_slashes = n_attackers * min(rounds * verification.p_check, rounds)
+    return compute + expected_slashes * verification.stake
+
+
+def no_off_report(results) -> str:
+    """Render the §5.5 analysis from a list of DerailmentResult (a topology
+    column appears when any result is decentralized; custody columns when
+    any result carries the custody axis, as in the reference)."""
+    topo = any(r.topology for r in results)
+    cust = any(r.redundancy for r in results)
+    head = "attacker_frac  aggregator      "
+    head += "topology          " if topo else ""
+    head += "verified  derailed  slashed  final/baseline"
+    head += "  r  coal_cov  extractability  extracted/honest" if cust else ""
+    lines = [head]
+    for r in results:
+        t = f"{r.topology or 'centralized':16s}  " if topo else ""
+        line = (
+            f"{r.attacker_fraction:12.2f}  {r.aggregator:14s}  {t}"
+            f"{str(r.verified):8s}"
+            f"  {str(r.derailed):8s}  {r.attackers_slashed}/{r.n_attackers:<6d}"
+            f"  {r.final_loss / max(r.baseline_loss, 1e-9):6.2f}")
+        if cust:
+            line += (f"  {r.redundancy}  {r.coalition_coverage:8.2f}"
+                     f"  {r.extractability:14s}"
+                     f"  {r.extracted_loss / max(r.final_loss, 1e-9):8.1f}")
+        lines.append(line)
+    return "\n".join(lines)

@@ -1,0 +1,544 @@
+"""Scenario registry: named, reproducible swarm configurations (twin of
+``repro/core/scenarios.py``).
+
+A :class:`Scenario` is a factory: it scales to any node count and builds
+the ``(nodes, SwarmConfig)`` pair or a ready-to-run swarm on either engine.
+The eight scenarios of the centralized synchronous round are registered
+here; the reference's other ten need a later axis of the round, and
+:func:`get_scenario` of one raises ``NotImplementedError`` naming its
+ROADMAP queue 1 item (``WAITING_SCENARIOS``).  :func:`scenario_campaign`
+runs one scenario across seeds as one campaign (``swarm.run_campaign``).
+
+:class:`SweepGrid` names the §5.5 derailment phase-diagram grids that
+``core.derailment.sweep`` consumes.  Every grid of the reference is
+registered, as data; a grid that sets a field of a later axis (topologies
+8, staleness bounds 9, custody 7, economy 10) raises that item when it is
+swept.  The reference's serving grids wait for item 12.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+from repro_torch.core.swarm import (
+    NodeSpec,
+    SwarmConfig,
+    lane_for_nodes,
+    make_swarm,
+    run_campaign,
+    stack_lanes,
+)
+from repro_torch.core.verification import VerificationConfig
+
+
+@dataclass(frozen=True)
+class Scenario:
+    """A named, size-scalable swarm regime.
+
+    ``make_nodes(n)`` returns the node roster for an ``n``-node swarm;
+    ``make_config(seed)`` the matching :class:`SwarmConfig`.  Both are pure,
+    so the same (name, n, seed) triple always reproduces the same run.
+    """
+    name: str
+    description: str
+    make_nodes: Callable[[int], List[NodeSpec]]
+    make_config: Callable[[int], SwarmConfig]
+    default_nodes: int = 16
+
+    def build(self, n_nodes: Optional[int] = None, seed: int = 0
+              ) -> Tuple[List[NodeSpec], SwarmConfig]:
+        n = self.default_nodes if n_nodes is None else n_nodes
+        if n < 2:
+            raise ValueError(f"scenario {self.name!r} needs >= 2 nodes, got {n}")
+        return self.make_nodes(n), self.make_config(seed)
+
+    def build_swarm(self, loss_fn, params, optimizer, data_fn, *,
+                    n_nodes: Optional[int] = None, seed: int = 0,
+                    engine: str = "batched"):
+        """Instantiate a swarm for this scenario on the requested engine."""
+        nodes, cfg = self.build(n_nodes, seed)
+        return make_swarm(loss_fn, params, optimizer, nodes, cfg, data_fn,
+                          engine=engine)
+
+
+SCENARIOS: Dict[str, Scenario] = {}
+
+#: the reference's scenarios that need a later axis of the round -> the
+#: ROADMAP queue 1 item each waits for
+WAITING_SCENARIOS: Dict[str, int] = {
+    "gossip_ring_honest": 8, "byzantine_neighborhood": 8, "partitioned_swarm": 8,
+    "custody_leech": 7, "custody_churn_collapse": 7,
+    "straggler_majority": 9, "stale_poisoning": 9, "async_churn": 9,
+    "economy_rational": 10, "economy_sybil_adaptive": 10,
+}
+
+
+def register_scenario(scenario: Scenario) -> Scenario:
+    """Add a scenario to the registry (overwrites an existing name)."""
+    SCENARIOS[scenario.name] = scenario
+    return scenario
+
+
+def get_scenario(name: str) -> Scenario:
+    if name in SCENARIOS:
+        return SCENARIOS[name]
+    if name in WAITING_SCENARIOS:
+        raise NotImplementedError(
+            f"scenario {name!r} is not ported yet "
+            f"(ROADMAP queue 1, item {WAITING_SCENARIOS[name]})")
+    raise KeyError(f"unknown scenario {name!r}; registered: {list_scenarios()}")
+
+
+def list_scenarios() -> List[str]:
+    return sorted(SCENARIOS)
+
+
+def batched_data_fn_for(data_fn: Callable[[int, int], dict], n_nodes: int,
+                        ) -> Callable[[int], list]:
+    """Lift a per-node ``data_fn(node_idx, rnd)`` into one ``fn(rnd)`` that
+    gives the round's N batches (the round takes a sequence of per-node
+    batches, so this is the list of N calls)."""
+    def fn(rnd: int) -> list:
+        return [data_fn(i, rnd) for i in range(n_nodes)]
+    return fn
+
+
+# -- helpers -------------------------------------------------------------------
+def _mixed_nodes(n: int, n_byz: int, attack: str, scale: float,
+                 speeds: Tuple[float, ...] = (1.0,),
+                 delays: Tuple[int, ...] = (0,),
+                 byz_delay: int = 0) -> List[NodeSpec]:
+    """n - n_byz honest nodes (speeds/delays cycling) then n_byz attackers."""
+    nodes = [NodeSpec(f"h{i}", speed=speeds[i % len(speeds)],
+                      delay=delays[i % len(delays)])
+             for i in range(n - n_byz)]
+    nodes += [NodeSpec(f"adv{i}", byzantine=attack, byzantine_scale=scale,
+                       delay=byz_delay)
+              for i in range(n_byz)]
+    return nodes
+
+
+# -- the registry --------------------------------------------------------------
+register_scenario(Scenario(
+    name="honest_baseline",
+    description=("All nodes honest, equal speed, mean aggregation, no "
+                 "verification or compression.  The control every other "
+                 "scenario is read against."),
+    make_nodes=lambda n: _mixed_nodes(n, 0, "zero", 0.0),
+    make_config=lambda seed: SwarmConfig(aggregator="mean", seed=seed),
+))
+
+register_scenario(Scenario(
+    name="sign_flip_minority",
+    description=("A 25% minority submits sign-flipped, 10x-amplified "
+                 "gradients (§3.3).  CenteredClip aggregation holds within "
+                 "its breakdown point."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, n // 4), "sign_flip", 10.0),
+    make_config=lambda seed: SwarmConfig(aggregator="centered_clip", seed=seed),
+))
+
+register_scenario(Scenario(
+    name="inner_product_collusion",
+    description=("A 25% coalition colludes on the [87]-style inner-product "
+                 "attack: every attacker submits -scale x the honest mean, "
+                 "the strongest directed attack in the corruption table.  "
+                 "CenteredClip aggregation."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, n // 4), "inner_product", 20.0),
+    make_config=lambda seed: SwarmConfig(aggregator="centered_clip", seed=seed),
+))
+
+def _churn_nodes(n: int) -> List[NodeSpec]:
+    core = max(2, n // 3)
+    nodes = [NodeSpec(f"core{i}") for i in range(core)]
+    for i in range(n - core):
+        join = 1 + (i % 6)
+        nodes.append(NodeSpec(f"churn{i}", join_round=join,
+                              leave_round=join + 8 + (i % 5)))
+    return nodes
+
+register_scenario(Scenario(
+    name="high_churn_elastic",
+    description=("Elastic membership stress (§3 property 3): a third of the "
+                 "swarm is always on; the rest join and leave on staggered "
+                 "1-6 round offsets with 8-12 round lifetimes.  The batched "
+                 "engine must absorb this churn without recompiling."),
+    make_nodes=_churn_nodes,
+    make_config=lambda seed: SwarmConfig(aggregator="mean", seed=seed),
+))
+
+register_scenario(Scenario(
+    name="heterogeneous_speed",
+    description=("Heterogeneous capacity (§3 property 5): node speeds cycle "
+                 "0.5x/1x/2x/4x and minted ownership shares must stay "
+                 "proportional to speed-weighted verified work (§4)."),
+    make_nodes=lambda n: _mixed_nodes(n, 0, "zero", 0.0,
+                                      speeds=(0.5, 1.0, 2.0, 4.0)),
+    make_config=lambda seed: SwarmConfig(aggregator="mean", seed=seed),
+))
+
+register_scenario(Scenario(
+    name="compressed_wire",
+    description=("Communication efficiency (§3.1): every gradient is "
+                 "round-tripped through 64-level bucketed QSGD before "
+                 "aggregation.  Honest swarm; measures what lossy wires cost "
+                 "in convergence."),
+    make_nodes=lambda n: _mixed_nodes(n, 0, "zero", 0.0),
+    make_config=lambda seed: SwarmConfig(
+        aggregator="mean", compression="qsgd",
+        compression_kwargs={"levels": 64, "bucket_size": 512}, seed=seed),
+))
+
+register_scenario(Scenario(
+    name="audit_heavy",
+    description=("Verification economics (§4.2): a 25% freeloader minority "
+                 "submits zero gradients; validators audit half of all "
+                 "updates per round (p_check=0.5), slashing stake and paying "
+                 "jackpots until the freeloaders are excluded."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, n // 4), "zero", 0.0),
+    make_config=lambda seed: SwarmConfig(
+        aggregator="mean",
+        verification=VerificationConfig(p_check=0.5, stake=5.0,
+                                        tolerance=1e-3, jackpot=5.0),
+        seed=seed),
+))
+
+register_scenario(Scenario(
+    name="derailment_stress",
+    description=("The No-Off stress case (§5.5): a 40% inner-product "
+                 "coalition at 50x scale tries to derail the run against "
+                 "CenteredClip aggregation plus stake/slash audits at "
+                 "p_check=0.25 — the regime where the paper argues only "
+                 "physical intervention remains."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, (2 * n) // 5),
+                                      "inner_product", 50.0),
+    make_config=lambda seed: SwarmConfig(
+        aggregator="centered_clip",
+        verification=VerificationConfig(p_check=0.25, stake=10.0,
+                                        tolerance=1e-3, jackpot=5.0),
+        seed=seed),
+))
+
+
+# -- campaigns over scenarios ----------------------------------------------------
+def scenario_campaign(name: str, loss_fn, params, optimizer, data_fn, *,
+                      n_nodes: Optional[int] = None, seeds: Tuple[int, ...] = (0,),
+                      rounds: int, eval_fn: Optional[Callable] = None):
+    """Run one scenario across many seeds as one campaign (lane *k* is
+    ``seeds[k]``).
+
+    Returns ``(state, records, final_losses, node_ids, cfg)``: every output
+    leaf carries a leading seed axis, and lane *k* reproduces the single-run
+    ``Swarm`` of the same (scenario, seed) bit for bit — see
+    ``swarm.history_from_records`` / ``swarm.ledger_from_run`` for turning
+    a lane back into host-side history and ledger.
+    """
+    scn = get_scenario(name)
+    nodes, cfg = scn.build(n_nodes, seeds[0])
+    dev = next(iter(params.values())).device
+    lanes = stack_lanes([lane_for_nodes(nodes, scn.make_config(s), dev)
+                         for s in seeds])
+    state, recs, final = run_campaign(
+        loss_fn, params, optimizer, data_fn, lanes, rounds=rounds,
+        aggregator=cfg.aggregator, agg_kwargs=cfg.agg_kwargs,
+        compression_kind=cfg.compression,
+        compression_kwargs=cfg.compression_kwargs,
+        verify=cfg.verification is not None, eval_fn=eval_fn)
+    return state, recs, final, [n.node_id for n in nodes], cfg
+
+
+# -- derailment sweep grids (§5.5 phase diagrams) --------------------------------
+@dataclass(frozen=True)
+class Regime:
+    """One (aggregator, verification) column of the §5.5 phase diagram.
+
+    ``agg_kwargs`` are *static* aggregator kwargs (the round's aggregator
+    set holds one entry per distinct (aggregator, static kwargs));
+    per-run kwargs (krum's ``f`` tracking the attacker count) are added
+    to the lanes by ``derailment.sweep`` itself.
+    """
+    name: str
+    aggregator: str
+    agg_kwargs: Dict = field(default_factory=dict)
+    verification: Optional[VerificationConfig] = None
+
+
+@dataclass(frozen=True)
+class SweepGrid:
+    """A named derailment sweep: the cartesian grid (attacker counts ×
+    scales × seeds) per regime that ``derailment.sweep`` runs as the lanes
+    of one campaign, with an honest baseline lane per seed.
+
+    Every field of the reference's grid is here, so every grid registers
+    as data.  The fields of the later axes, each the reference's meaning:
+    ``topologies`` (the decentralized round; ROADMAP queue 1, item 8),
+    ``redundancies`` / ``coalition_fractions`` with ``num_shards``,
+    ``custody_max_fraction`` and ``custody_leave_fraction`` (the custody
+    axis; item 7), ``staleness_bounds`` (bounded-staleness rounds; item 9)
+    and ``identity_costs`` / ``fees`` / ``reward_schedules`` / ``adaptive``
+    with the ``econ_*`` knobs (the economy axes; item 10).  A grid that
+    sets one raises its item when it is swept."""
+    name: str
+    description: str
+    regimes: Tuple[Regime, ...]
+    n_honest: int = 10
+    attacker_counts: Tuple[int, ...] = (1, 3, 6, 12)
+    seeds: Tuple[int, ...] = (0, 1, 2)
+    scales: Tuple[float, ...] = (50.0,)
+    attack: str = "inner_product"
+    rounds: int = 25
+    topologies: Tuple[str, ...] = ()
+    redundancies: Tuple[int, ...] = ()
+    coalition_fractions: Tuple[float, ...] = ()
+    num_shards: int = 16
+    custody_max_fraction: float = 0.5
+    custody_leave_fraction: float = 0.0
+    staleness_bounds: Tuple[int, ...] = ()
+    # -- economy axes (§4): empty on all four = no economy lane --------------
+    identity_costs: Tuple[float, ...] = ()
+    fees: Tuple[float, ...] = ()
+    reward_schedules: Tuple[Tuple[float, float], ...] = ()  # (rate, jackpot)
+    adaptive: Tuple[bool, ...] = ()
+    econ_budget: float = 50.0        # the coalition's total capital
+    econ_min_stake: float = 5.0      # admission bond
+    econ_op_cost: float = 0.05       # per-round operating cost per unit speed
+    econ_reserve: float = 1.0        # honest starting balance
+
+    @property
+    def has_custody(self) -> bool:
+        return bool(self.redundancies) or bool(self.coalition_fractions)
+
+    @property
+    def has_economy(self) -> bool:
+        return bool(self.identity_costs) or bool(self.fees) \
+            or bool(self.reward_schedules) or bool(self.adaptive)
+
+    @property
+    def n_points(self) -> int:
+        return (len(self.regimes) * len(self.attacker_counts)
+                * len(self.scales) * len(self.seeds)
+                * max(1, len(self.topologies))
+                * max(1, len(self.staleness_bounds))
+                * max(1, len(self.redundancies))
+                * max(1, len(self.coalition_fractions))
+                * max(1, len(self.identity_costs))
+                * max(1, len(self.fees))
+                * max(1, len(self.reward_schedules))
+                * max(1, len(self.adaptive)))
+
+    @property
+    def n_lanes(self) -> int:
+        """Total campaign lanes ``derailment.sweep`` builds for this grid:
+        every measured point plus the shared honest-baseline lanes (one per
+        (topology, staleness bound, seed)), as the reference counts
+        them."""
+        return self.n_points + (max(1, len(self.topologies))
+                                * max(1, len(self.staleness_bounds))
+                                * len(self.seeds))
+
+
+SWEEP_GRIDS: Dict[str, SweepGrid] = {}
+
+
+def register_sweep_grid(grid: SweepGrid) -> SweepGrid:
+    SWEEP_GRIDS[grid.name] = grid
+    return grid
+
+
+def get_sweep_grid(name: str) -> SweepGrid:
+    try:
+        return SWEEP_GRIDS[name]
+    except KeyError:
+        raise KeyError(f"unknown sweep grid {name!r}; "
+                       f"registered: {list_sweep_grids()}") from None
+
+
+def list_sweep_grids() -> List[str]:
+    return sorted(SWEEP_GRIDS)
+
+
+_AUDIT = VerificationConfig(p_check=0.25, stake=10.0, tolerance=1e-3,
+                            jackpot=5.0)
+_PERFECT_AUDIT = VerificationConfig(p_check=1.0, stake=5.0, tolerance=1e-3,
+                                    jackpot=5.0)
+
+register_sweep_grid(SweepGrid(
+    name="no_off_quick",
+    description=("The benchmark grid: 4 attacker fractions x 3 seeds x "
+                 "2 regimes (mean / CenteredClip+audits) = 24 runs in one "
+                 "fused compiled program."),
+    regimes=(Regime("mean", "mean"),
+             Regime("centered_clip+audit", "centered_clip",
+                    verification=_AUDIT)),
+))
+
+register_sweep_grid(SweepGrid(
+    name="no_off_phase",
+    description=("The paper's full §5.5 table: mean (off-switch works), "
+                 "CenteredClip (breakdown point), and mean under "
+                 "near-perfect verification (derailment slashed away).  "
+                 "All three regimes fuse into one program — p_check is a "
+                 "traced lane, the aggregator a per-lane id."),
+    regimes=(Regime("mean", "mean"),
+             Regime("centered_clip", "centered_clip"),
+             Regime("mean+verified", "mean", verification=_PERFECT_AUDIT)),
+))
+
+register_sweep_grid(SweepGrid(
+    name="no_off_smoke",
+    description="CI smoke: 2 counts x 1 seed x 2 regimes = 4 tiny runs.",
+    regimes=(Regime("mean", "mean"),
+             Regime("centered_clip", "centered_clip")),
+    n_honest=6,
+    attacker_counts=(2, 6),
+    seeds=(0,),
+    rounds=8,
+))
+
+register_sweep_grid(SweepGrid(
+    name="no_off_topology",
+    description=("The decentralized §5.5 diagram: at what spectral gap "
+                 "does local robust aggregation stop resisting "
+                 "derailment?  2 regimes x 4 topologies x 3 fractions x "
+                 "2 seeds, all lanes (and per-topology baselines) in one "
+                 "compiled program — the mixing matrix is a traced lane."),
+    regimes=(Regime("mean", "mean"),
+             Regime("centered_clip", "centered_clip")),
+    topologies=("ring", "random_regular", "clustered", "fully_connected"),
+    n_honest=10,
+    attacker_counts=(1, 3, 6),
+    seeds=(0, 1),
+    rounds=20,
+))
+
+register_sweep_grid(SweepGrid(
+    name="no_off_async",
+    description=("The asynchrony frontier (§5.5 x §3): does CenteredClip's "
+                 "breakdown point survive *stale* Byzantine updates?  2 "
+                 "regimes x 3 staleness bounds x 3 attacker counts x 2 "
+                 "seeds — every bound shares one compiled program (per-node "
+                 "delay caps are a traced lane over the max bound's ring), "
+                 "so staleness x attacker-fraction renders like any other "
+                 "phase diagram."),
+    regimes=(Regime("mean", "mean"),
+             Regime("centered_clip", "centered_clip")),
+    staleness_bounds=(0, 2, 4),
+    n_honest=10,
+    attacker_counts=(1, 3, 6),
+    seeds=(0, 1),
+    rounds=20,
+))
+
+register_sweep_grid(SweepGrid(
+    name="no_off_async_smoke",
+    description=("CI smoke for the asynchrony axis: 1 regime x 2 staleness "
+                 "bounds x 2 counts x 1 seed = 4 tiny runs."),
+    regimes=(Regime("centered_clip", "centered_clip"),),
+    staleness_bounds=(0, 2),
+    n_honest=6,
+    attacker_counts=(2, 6),
+    seeds=(0,),
+    rounds=8,
+))
+
+register_sweep_grid(SweepGrid(
+    name="custody_frontier",
+    description=("The §4.1 extractability frontier: at what redundancy and "
+                 "coalition fraction does a swarm stop being a Protocol "
+                 "Model?  (redundancy x coalition fraction x churn seed) "
+                 "cells, each with the reconstruct-attack eval, in one "
+                 "compiled program; a third of the honest roster churns "
+                 "out mid-run, so low-redundancy cells degrade."),
+    regimes=(Regime("mean", "mean"),),
+    n_honest=10,
+    attacker_counts=(0,),
+    seeds=(0, 1, 2),
+    rounds=20,
+    redundancies=(1, 2, 3),
+    coalition_fractions=(0.2, 0.4, 0.6, 0.8, 1.0),
+    num_shards=12,
+    custody_max_fraction=0.4,
+    custody_leave_fraction=0.3,
+))
+
+register_sweep_grid(SweepGrid(
+    name="custody_smoke",
+    description=("CI smoke for the custody axis: 2 redundancies x 2 "
+                 "coalition fractions x 1 seed = 4 tiny runs with the "
+                 "reconstruct-attack eval."),
+    regimes=(Regime("mean", "mean"),),
+    n_honest=6,
+    attacker_counts=(0,),
+    seeds=(0,),
+    rounds=8,
+    redundancies=(1, 2),
+    coalition_fractions=(0.5, 1.0),
+    num_shards=8,
+    custody_max_fraction=0.5,
+    custody_leave_fraction=0.34,
+))
+
+register_sweep_grid(SweepGrid(
+    name="no_off_economy",
+    description=("The §4 incentive phase diagram: at what identity cost "
+                 "and fee schedule does rational participation survive a "
+                 "strategic coalition?  2 regimes x 3 identity costs x 3 "
+                 "fees x 2 reward schedules x fixed-vs-adaptive x 2 seeds "
+                 "= 144 lanes (+ baselines) in ONE compiled program — "
+                 "every economy knob is a traced lane, the adaptive "
+                 "best-response an in-program inner step.  Each lane is "
+                 "classified sustained / death_spiral / captured; the "
+                 "fixed-vs-adaptive gap is the paper's open question "
+                 "rendered as a phase-diagram delta.  The fixed attack "
+                 "runs at a moderate scale (2.0); the adaptive coalition "
+                 "recalibrates per round, so the gap concentrates in the "
+                 "weakly-defended (mean) regime and robust aggregation "
+                 "closes it."),
+    regimes=(Regime("mean+audit", "mean", verification=_AUDIT),
+             Regime("centered_clip+audit", "centered_clip",
+                    verification=_AUDIT)),
+    n_honest=8,
+    attacker_counts=(4,),
+    seeds=(0, 1),
+    scales=(2.0,),
+    rounds=20,
+    identity_costs=(0.25, 2.0, 8.0),
+    fees=(0.25, 1.0, 4.0),
+    reward_schedules=((0.05, 2.0), (0.2, 8.0)),
+    adaptive=(False, True),
+))
+
+register_sweep_grid(SweepGrid(
+    name="no_off_economy_smoke",
+    description=("CI smoke for the economy axes: 2 regimes x 2 identity "
+                 "costs x 2 fees x 1 schedule x fixed-vs-adaptive x 1 seed "
+                 "= 16 tiny lanes (+ 1 baseline) with the full economy "
+                 "round (Sybil funding, stake-gated admission, escrowed "
+                 "rewards, pool-funded jackpots, best-response lanes) — "
+                 "small enough for CI, large enough that the mean-regime "
+                 "adaptive lanes show the loss gap."),
+    regimes=(Regime("mean+audit", "mean", verification=_AUDIT),
+             Regime("centered_clip+audit", "centered_clip",
+                    verification=_AUDIT)),
+    n_honest=6,
+    attacker_counts=(3,),
+    seeds=(0,),
+    scales=(2.0,),
+    rounds=8,
+    identity_costs=(0.5, 4.0),
+    fees=(0.5, 2.0),
+    reward_schedules=((0.1, 5.0),),
+    adaptive=(False, True),
+))
+
+
+register_sweep_grid(SweepGrid(
+    name="no_off_topology_smoke",
+    description=("CI smoke for the decentralized axis: 1 regime x 2 "
+                 "topologies x 2 counts x 1 seed = 4 tiny runs."),
+    regimes=(Regime("centered_clip", "centered_clip"),),
+    topologies=("ring", "fully_connected"),
+    n_honest=6,
+    attacker_counts=(2, 6),
+    seeds=(0,),
+    rounds=8,
+))

@@ -27,16 +27,24 @@ and compare rounds exactly).  The wire draw of a node is drawn once per use
 from its node generator, so its payload and the auditor's recomputation
 see the same numbers and honest nodes pass their audits.
 
+The campaign engine composes the round: :func:`scan_rounds` steps one run
+over its rounds with nothing read back by the loop, and :func:`run_campaign`
+runs every lane of a :func:`stack_lanes` campaign (a Python loop over the
+lanes, each a scanned run from the same initial params on the same
+per-(node, round) batches), routing each lane to its own aggregator by
+``agg_id`` when the round is built over an aggregator set.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): multi-aggregator routing, ``scan_rounds`` / ``run_campaign``
-(3), custody lanes (7), decentralized topologies (8), bounded staleness (9)
-and the economy lane (10).
+queue 1 item): custody lanes (7), decentralized topologies (8), bounded
+staleness (9), the economy lane (10) and a ``MeshPlan`` placement (13).
 """
 from __future__ import annotations
 
+import functools
+import inspect
 from dataclasses import dataclass, field
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
-                    Set)
+                    Set, Tuple, Union)
 
 import numpy as np
 import torch
@@ -155,21 +163,71 @@ def _corrupt_all(codes: Sequence[int], gf: torch.Tensor,
 
 # ============================ functional core ==================================
 class LaneParams(NamedTuple):
-    """Per-run parameters of the round.  Roster fields are (N,) tensors on
-    the round's device; ``seed`` keys the draws; the audit fields are
-    floats (``p_check == 0`` disables auditing); ``agg_kwargs`` are passed
-    to the aggregator.  The reference's mixing, custody, delay and economy
-    lanes wait for their slices."""
+    """Per-run parameters of the round.
+
+    A single run's lane: roster fields are (N,) tensors on the round's
+    device; ``seed`` keys the draws; the audit fields are floats
+    (``p_check == 0`` disables auditing); ``agg_kwargs`` are passed to the
+    aggregator (in a routed round, each aggregator takes the entries it
+    accepts); ``agg_id`` is a host int, this run's index into the round's
+    aggregator set.
+
+    A campaign (:func:`stack_lanes`): every tensor field gains a leading L
+    axis, ``seed`` and the audit fields become per-lane host tuples, each
+    ``agg_kwargs`` entry an (L,) tensor, ``agg_id`` an (L,) int32 tensor
+    and ``agg_ids`` its host copy, which routing reads so that it never
+    reads the device.  :meth:`lane` slices run k back out.
+
+    ``mixing`` (item 8), ``custody`` / ``coalition`` (item 7), ``delays``
+    (item 9) and ``econ`` (item 10) are the reference's later axes: a lane
+    carrying one raises ``NotImplementedError`` naming its ROADMAP queue 1
+    item wherever the engine meets it."""
     codes: torch.Tensor       # (N,) int32 behaviour codes (BEHAVIOUR_CODES)
     scales: torch.Tensor      # (N,) f32 byzantine scales
     speeds: torch.Tensor      # (N,) f32 capacity -> minted shares per kept round
     joins: torch.Tensor       # (N,) int32 join round (inclusive)
     leaves: torch.Tensor      # (N,) int32 leave round (exclusive; _FAR = never)
-    seed: int                 # the run seed of the key schedule
-    p_check: float            # audit probability (0 = never audited)
-    tolerance: float          # audit relative-mismatch tolerance
-    numeric_noise: float      # simulated cross-stack nondeterminism
+    seed: Union[int, Tuple[int, ...]]             # the run seed of the key schedule
+    p_check: Union[float, Tuple[float, ...]]      # audit probability (0 = never)
+    tolerance: Union[float, Tuple[float, ...]]    # audit relative-mismatch tolerance
+    numeric_noise: Union[float, Tuple[float, ...]]  # simulated cross-stack spread
     agg_kwargs: Dict[str, Any]
+    agg_id: Union[int, torch.Tensor] = 0          # index into the aggregator set
+    agg_ids: Optional[Tuple[int, ...]] = None     # stacked only: agg_id on the host
+    mixing: Any = None
+    custody: Any = None
+    coalition: Any = None
+    delays: Any = None
+    econ: Any = None
+
+    @property
+    def n_lanes(self) -> Optional[int]:
+        """L of a stacked campaign; None for a single run's lane."""
+        return None if self.agg_ids is None else len(self.agg_ids)
+
+    def lane(self, k: int) -> "LaneParams":
+        """Run ``k`` of a stacked campaign as a single run's lane."""
+        if self.agg_ids is None:
+            raise ValueError("lane(k) slices a stacked campaign (stack_lanes)")
+        return LaneParams(
+            codes=self.codes[k], scales=self.scales[k], speeds=self.speeds[k],
+            joins=self.joins[k], leaves=self.leaves[k], seed=self.seed[k],
+            p_check=self.p_check[k], tolerance=self.tolerance[k],
+            numeric_noise=self.numeric_noise[k],
+            agg_kwargs={name: v[k] for name, v in self.agg_kwargs.items()},
+            agg_id=self.agg_ids[k])
+
+
+#: the reference's later lane axes -> the ROADMAP queue 1 item each waits for
+_LATER_AXES = (("mixing", 8), ("custody", 7), ("coalition", 7), ("delays", 9),
+               ("econ", 10))
+
+
+def _refuse_later_axes(lane: LaneParams) -> None:
+    for name, item in _LATER_AXES:
+        if getattr(lane, name) is not None:
+            raise NotImplementedError(
+                f"LaneParams.{name} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 class SwarmState(NamedTuple):
@@ -216,6 +274,102 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
     )
 
 
+def tree_map(fn: Callable, *trees):
+    """``fn`` over the tensor leaves of like-shaped trees (dicts, named and
+    plain tuples, lists; None stays None)."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def stack_trees(trees: Sequence[Any]):
+    """Like-shaped trees -> one tree whose leaves gain a leading axis."""
+    if not trees:
+        raise ValueError("stack_trees needs at least one tree")
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def lane_slice(tree, k: int):
+    """Lane ``k`` of a campaign output (every leaf indexed by ``k``)."""
+    return tree_map(lambda x: x[k], tree)
+
+
+def stack_lanes(lanes: Sequence[LaneParams],
+                device: Optional[torch.device] = None) -> LaneParams:
+    """Stack single-run lanes into a campaign: every tensor field (and any
+    host array, as ``derailment.build_sweep_lanes`` builds) gains a leading
+    L axis on ``device`` (default: the first lane's), ``seed`` and the audit
+    fields become per-lane host tuples, each ``agg_kwargs`` entry an (L,)
+    tensor, and ``agg_id`` an (L,) int32 tensor beside its host copy
+    ``agg_ids``.  All lanes must share N and the ``agg_kwargs`` keys."""
+    lanes = list(lanes)
+    if not lanes:
+        raise ValueError("stack_lanes needs at least one lane")
+    for lane in lanes:
+        _refuse_later_axes(lane)
+        if lane.agg_ids is not None:
+            raise ValueError("stack_lanes stacks single-run lanes, not campaigns")
+    keys = set(lanes[0].agg_kwargs)
+    if any(set(lane.agg_kwargs) != keys for lane in lanes):
+        raise ValueError("every lane of a campaign needs the same agg_kwargs keys")
+    first = lanes[0].codes
+    dev = torch.device(device) if device is not None else (
+        first.device if isinstance(first, torch.Tensor) else torch.device("cpu"))
+
+    def stacked(values):
+        return torch.stack([torch.as_tensor(x) for x in values]).to(dev)
+
+    agg_ids = tuple(int(lane.agg_id) for lane in lanes)
+    return LaneParams(
+        codes=stacked(lane.codes for lane in lanes),
+        scales=stacked(lane.scales for lane in lanes),
+        speeds=stacked(lane.speeds for lane in lanes),
+        joins=stacked(lane.joins for lane in lanes),
+        leaves=stacked(lane.leaves for lane in lanes),
+        seed=tuple(int(lane.seed) for lane in lanes),
+        p_check=tuple(float(lane.p_check) for lane in lanes),
+        tolerance=tuple(float(lane.tolerance) for lane in lanes),
+        numeric_noise=tuple(float(lane.numeric_noise) for lane in lanes),
+        agg_kwargs={k: stacked(lane.agg_kwargs[k] for lane in lanes)
+                    for k in sorted(keys)},
+        agg_id=torch.tensor(agg_ids, dtype=torch.int32, device=dev),
+        agg_ids=agg_ids)
+
+
+def init_state(params, optimizer, n_nodes: int, *, staleness_bound: int = 0,
+               econ=None) -> SwarmState:
+    """The centralized synchronous round's initial state: the params, a
+    fresh optimizer state, no node slashed, nothing minted.  The async ring
+    (item 9) and the economy state (item 10) are not ported yet."""
+    if staleness_bound:
+        raise NotImplementedError("bounded staleness is not ported yet "
+                                  "(ROADMAP queue 1, item 9)")
+    if econ is not None:
+        raise NotImplementedError("the economy lane is not ported yet "
+                                  "(ROADMAP queue 1, item 10)")
+    dev = next(iter(params.values())).device
+    return SwarmState(params=params, opt_state=optimizer.init(params),
+                      slashed=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
+                      contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev))
+
+
+def _accepted_kwargs(name: str) -> frozenset:
+    """Keyword names a masked aggregator understands (for routing the shared
+    ``lane.agg_kwargs`` dict in multi-aggregator rounds), read from the
+    signatures of ``aggregation.MASKED_AGGREGATORS``, which the fused twins
+    share."""
+    sig = inspect.signature(aggregation.MASKED_AGGREGATORS[name])
+    return frozenset(p.name for p in sig.parameters.values()
+                     if p.kind is inspect.Parameter.KEYWORD_ONLY)
+
+
 def _wire_draw(rr: RoundRandom, draw: Optional[tuple], node: int) -> Optional[torch.Tensor]:
     """Node ``node``'s wire draw for ``compression.wire_draw``'s ``draw``:
     uniforms, normals, or None for a wire that takes none."""
@@ -232,54 +386,98 @@ def _node_gradient(loss_fn: Callable, params: Dict[str, torch.Tensor], batch):
     return dict(zip(leaves.keys(), grads))
 
 
+def fused_choice(names: Sequence[str], compression_kind: Optional[str],
+                 levels: int = 16, *, on_card: bool, stack_bytes: int,
+                 fused: Optional[bool] = None) -> Tuple[bool, ...]:
+    """Which aggregators of a round's set run their fused twins: one bool
+    per name.  The fused path needs an uncompressed or int8-codeable qsgd
+    wire and the aggregator's twin in ``FUSED_MASKED_AGGREGATORS``.
+
+    ``fused=None`` on the card gives every aggregator with a twin its
+    kernels, whatever the rest of the set holds and with no size
+    threshold: a lane runs its own aggregator only (:func:`make_round_fn`),
+    so a mixed set never sends a CenteredClip lane to plain PyTorch.  On
+    the CPU (where the fused path runs the kernels' plain versions) it
+    follows the reference: all or none, fused when every aggregator of the
+    set has a twin and the (N, D) float32 stack reaches
+    ``FUSED_MIN_BYTES``.  ``True`` fuses every one and raises where one
+    cannot be; ``False`` fuses none."""
+    wire_ok = (compression_kind is None
+               or (compression_kind == "qsgd" and levels <= 127))
+    has_twin = [wire_ok and name in masked_agg_ops.FUSED_MASKED_AGGREGATORS
+                for name in names]
+    if fused is None:
+        if on_card:
+            return tuple(has_twin)
+        return (all(has_twin)
+                and stack_bytes >= masked_agg_ops.FUSED_MIN_BYTES,) * len(names)
+    if fused and not all(has_twin):
+        raise ValueError(
+            "fused=True unsupported here: needs aggregators within "
+            f"{sorted(masked_agg_ops.FUSED_MASKED_AGGREGATORS)} (got "
+            f"{list(names)}) and an uncompressed or int8-codeable qsgd wire "
+            f"(got {compression_kind!r}, levels={levels})")
+    return (bool(fused),) * len(names)
+
+
 def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *,
-                  aggregator: str, agg_kwargs: Optional[Dict] = None,
+                  aggregator, agg_kwargs: Optional[Dict] = None,
                   compression_kind: Optional[str] = None,
                   compression_kwargs: Optional[Dict] = None,
                   verify: bool = False, fused: Optional[bool] = None) -> Callable:
     """Build the round: ``round_fn(lane, state, rnd, batches, draws=None)
     -> (state, RoundRecord)``, ``batches`` one batch per node.
 
+    ``aggregator`` is one name (``agg_kwargs`` are its static kwargs;
+    ``lane.agg_kwargs`` pass through verbatim) or a sequence of ``(name,
+    static_kwargs)`` pairs, and then ``agg_kwargs`` must be empty.  A
+    routed round runs lane ``k`` through aggregator ``lane.agg_id``, which
+    receives only the ``lane.agg_kwargs`` entries its signature accepts,
+    less its static kwargs (static kwargs win).  The reference, under
+    ``vmap``, evaluates every aggregator of the set and selects one by
+    ``agg_id``; the port evaluates only the lane's own (``agg_id`` is a host
+    int), the same value without the set's work done L times over.
+
     ``fused`` selects the hot path: aggregators run their fused twins
     (``kernels.masked_agg``) and a qsgd wire keeps the int8 payload live
-    into aggregation instead of a decoded float32 stack.  ``None`` turns it
-    on when every aggregator has a fused twin and the wire is uncompressed
-    or int8-codeable qsgd; on the CPU (where the fused path runs the
-    kernels' plain versions) the (N, D) float32 stack must also reach
-    ``FUSED_MIN_BYTES``, as in the reference.  On the card it takes no
-    size threshold, so a fusable round always runs the kernels.  ``True``
-    forces it (raising on unsupported combinations); ``False`` forces the
-    reference path.  The choice is exposed as ``round_fn.fused``.
+    into aggregation instead of a decoded float32 stack.  ``None`` resolves
+    it per aggregator with :func:`fused_choice`; ``True`` forces it
+    (raising on unsupported combinations); ``False`` forces the reference
+    path.  The choice is exposed as ``round_fn.fused_by_agg`` (one bool per
+    aggregator of the set) and ``round_fn.fused`` (every one fused).
     """
-    if not isinstance(aggregator, str):
-        raise NotImplementedError("multi-aggregator routing waits for the "
-                                  "campaign slice (ROADMAP queue 1, item 3)")
+    if isinstance(aggregator, str):
+        agg_specs = [(aggregator, dict(agg_kwargs or {}))]
+        route_kwargs = False
+    else:
+        if agg_kwargs:
+            raise ValueError("pass per-aggregator static kwargs inside the "
+                             "(name, kwargs) pairs, not via agg_kwargs")
+        agg_specs = [(name, dict(kw)) for name, kw in aggregator]
+        route_kwargs = True
     if compression_kind not in compression.WIRE_CODECS:
         raise ValueError(f"unknown wire codec: {compression_kind!r} "
                          f"(known: {compression.WIRE_CODECS})")
-    agg_kwargs = dict(agg_kwargs or {})
     ckw = dict(compression_kwargs or {})
     layout = layout_of(params_template)
     d_total = flat_size(layout)
     stack_bytes = n_nodes * d_total * 4
-    fusable_agg = aggregator in masked_agg_ops.FUSED_MASKED_AGGREGATORS
-    fusable_wire = (compression_kind is None
-                    or (compression_kind == "qsgd" and ckw.get("levels", 16) <= 127))
-    fused_ok = fusable_agg and fusable_wire
-    if fused is None:
-        on_card = next(iter(params_template.values())).is_cuda
-        fused = fused_ok and (on_card
-                              or stack_bytes >= masked_agg_ops.FUSED_MIN_BYTES)
-    elif fused and not fused_ok:
-        raise ValueError(
-            "fused=True unsupported here: needs an aggregator within "
-            f"{sorted(masked_agg_ops.FUSED_MASKED_AGGREGATORS)} (got "
-            f"{aggregator!r}) and an uncompressed or int8-codeable qsgd wire "
-            f"(got {compression_kind!r}, levels={ckw.get('levels', 16)})")
-    fused_qsgd = fused and compression_kind == "qsgd"
-    getter = (masked_agg_ops.get_fused_aggregator if fused
-              else aggregation.get_masked_aggregator)
-    agg_fn = getter(aggregator, **agg_kwargs)
+    fused_by_agg = fused_choice(
+        [name for name, _ in agg_specs], compression_kind, ckw.get("levels", 16),
+        on_card=next(iter(params_template.values())).is_cuda,
+        stack_bytes=stack_bytes, fused=fused)
+    agg_fns = [((masked_agg_ops.get_fused_aggregator if f
+                 else aggregation.get_masked_aggregator)(name, **kw),
+                _accepted_kwargs(name) - set(kw), f)
+               for (name, kw), f in zip(agg_specs, fused_by_agg)]
+
+    def aggregate(lane: LaneParams, stack, mask):
+        if not route_kwargs:
+            return agg_fns[0][0](stack, mask, **lane.agg_kwargs)
+        fn, accepted, _ = agg_fns[int(lane.agg_id)]
+        return fn(stack, mask, **{k: v for k, v in sorted(lane.agg_kwargs.items())
+                                  if k in accepted})
+
     draw = compression.wire_draw(compression_kind, d_total, **ckw)
 
     def round_fn(lane: LaneParams, state: SwarmState, rnd: int, batches,
@@ -291,6 +489,7 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         nact = torch.sum(maskf)
         rr = RoundRandom(lane.seed, rnd, dev, draws)
         codes = lane.codes.tolist()
+        fused_qsgd = compression_kind == "qsgd" and agg_fns[int(lane.agg_id)][2]
 
         # 1. per-node gradients -> rows of one (N, D) float32 stack
         gf = torch.empty((n, d_total), dtype=torch.float32, device=dev)
@@ -352,7 +551,7 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         keep = active & ~caught
 
         # 5. masked robust aggregation
-        agg = agg_fn(submitted, keep, **lane.agg_kwargs)
+        agg = aggregate(lane, submitted, keep)
         del submitted
         any_keep = torch.any(keep)
         agg = torch.where(any_keep, agg, torch.zeros_like(agg))
@@ -375,24 +574,216 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
             consensus_err=zero, coverage=zero + 1.0, staleness=zero)
         return new_state, rec
 
-    round_fn.fused = fused                    # resolved choice, inspectable
+    round_fn.fused_by_agg = fused_by_agg      # resolved choice, inspectable
+    round_fn.fused = all(fused_by_agg)
     round_fn.stack_bytes = stack_bytes
     return round_fn
 
 
-def history_from_records(recs: Sequence[RoundRecord], node_ids: Sequence[str], *,
-                         start_round: int = 0) -> List[dict]:
-    """Rebuild the per-round host history from a run's records."""
+def scan_rounds(round_fn: Callable, lane: LaneParams, state: SwarmState,
+                rounds: int, batch_fn: Callable, eval_fn: Optional[Callable] = None,
+                *, draws_fn: Optional[Callable[[int], RoundDraws]] = None):
+    """Step the round over rounds 0..rounds-1: the twin of the reference's
+    ``lax.scan``, as a Python loop.  ``batch_fn(rnd)`` gives the round's
+    per-node batches, ``draws_fn(rnd)`` (the tests) its draws.  The loop
+    itself reads nothing back from the device (the records stay there,
+    stacked); the round reads what ``Swarm.step``'s does (ROADMAP queue
+    1, item 3b).
+    Returns ``(state, RoundRecord, final_loss)``: every record leaf stacked
+    (T, ...), ``final_loss`` a 0-d float32 tensor of ``eval_fn(params)`` on
+    the final params, computed under ``torch.no_grad()`` (0 without an
+    ``eval_fn``)."""
+    _refuse_later_axes(lane)
+    if rounds < 1:
+        raise ValueError(f"scan_rounds needs rounds >= 1, got {rounds}")
+    recs = []
+    for rnd in range(rounds):
+        draws = None if draws_fn is None else draws_fn(rnd)
+        state, rec = round_fn(lane, state, rnd, batch_fn(rnd), draws)
+        recs.append(rec)
+    dev = state.slashed.device
+    if eval_fn is None:
+        final = torch.zeros((), dtype=torch.float32, device=dev)
+    else:
+        with torch.no_grad():
+            final = torch.as_tensor(eval_fn(state.params), dtype=torch.float32,
+                                    device=dev).reshape(())
+    return state, stack_trees(recs), final
+
+
+def make_scan_program(round_fn: Callable, batch_fn: Callable, rounds: int,
+                      eval_fn: Optional[Callable] = None) -> Callable:
+    """The scanned run as a function: ``run(lane, params, opt_state,
+    slashed, contrib, ring=None, econ=None) -> (SwarmState, RoundRecord,
+    final_loss)``.  The reference donates the carries to XLA; here nothing
+    is donated or needs to be: the round is functional, so the engine never
+    writes into the caller's ``params`` or ``opt_state`` and makes its own
+    new carries each round.  ``ring`` (item 9) and ``econ`` (item 10) are
+    not ported yet."""
+    def run(lane: LaneParams, params, opt_state, slashed, contrib, ring=None, econ=None):
+        if ring is not None:
+            raise NotImplementedError("the staleness ring is not ported yet "
+                                      "(ROADMAP queue 1, item 9)")
+        if econ is not None:
+            raise NotImplementedError("the economy state is not ported yet "
+                                      "(ROADMAP queue 1, item 10)")
+        state = SwarmState(params=params, opt_state=opt_state, slashed=slashed,
+                           contrib=contrib)
+        return scan_rounds(round_fn, lane, state, rounds, batch_fn, eval_fn)
+    return run
+
+
+def run_campaign(loss_fn: Callable, params0, optimizer, data_fn: Callable,
+                 lanes: LaneParams, *, rounds: int, aggregator,
+                 agg_kwargs: Optional[Dict] = None,
+                 compression_kind: Optional[str] = None,
+                 compression_kwargs: Optional[Dict] = None,
+                 verify: bool = False, eval_fn: Optional[Callable] = None,
+                 batched_data_fn: Optional[Callable] = None,
+                 fast_compile: bool = False,
+                 fused: Optional[bool] = None, plan=None,
+                 draws_fn: Optional[Callable[[int, int], RoundDraws]] = None,
+                 keep_params: bool = True):
+    """Run a whole campaign: every lane of ``lanes`` (:func:`stack_lanes`)
+    through the scanned round.
+
+    All lanes share the aggregator set (and its static kwargs), the wire
+    codec, the initial params and the data: each per-(node, round) batch
+    is made once, by ``data_fn(node, rnd)`` or ``batched_data_fn(rnd)`` (a
+    sequence of N batches), and every lane sees it.  They differ in what
+    :class:`LaneParams` carries: roster, seed, audit rate and tolerance,
+    ``agg_id`` and ``agg_kwargs``.  This first cut loops over the lanes on
+    the host, each lane :func:`scan_rounds` from a fresh
+    :func:`init_state`; lane k equals the single-run :class:`Swarm` of the
+    same roster and config bit for bit.  ``draws_fn(k, rnd)`` hands lane k
+    its round's draws (the tests pass the reference's).
+
+    ``fast_compile`` is the reference's XLA option and a no-op here: there
+    is nothing to compile.  ``plan`` (a ``MeshPlan``) waits for the
+    distributed layer (item 13), and a lane carrying a later axis raises
+    its item.
+
+    Returns ``(SwarmState, RoundRecord, final losses)`` with a leading L
+    axis on every leaf: records (L, T, ...), final losses (L,).
+    ``keep_params=False`` drops each lane's params and optimizer state as
+    the lane ends (the returned state holds None for both): a sweep reads
+    only ``slashed``, ``contrib`` and the final losses, and then holds one
+    lane's model state at a time.
+    """
+    program = make_campaign_program(
+        loss_fn, params0, optimizer, data_fn, lanes, rounds=rounds,
+        aggregator=aggregator, agg_kwargs=agg_kwargs,
+        compression_kind=compression_kind, compression_kwargs=compression_kwargs,
+        verify=verify, eval_fn=eval_fn, batched_data_fn=batched_data_fn,
+        fused=fused, plan=plan, draws_fn=draws_fn, keep_params=keep_params)
+    return program(lanes)
+
+
+def make_campaign_program(loss_fn: Callable, params0, optimizer,
+                          data_fn: Callable, lanes: LaneParams, *,
+                          rounds: int, aggregator,
+                          agg_kwargs: Optional[Dict] = None,
+                          compression_kind: Optional[str] = None,
+                          compression_kwargs: Optional[Dict] = None,
+                          verify: bool = False,
+                          eval_fn: Optional[Callable] = None,
+                          batched_data_fn: Optional[Callable] = None,
+                          fused: Optional[bool] = None, plan=None,
+                          draws_fn: Optional[Callable[[int, int], RoundDraws]] = None,
+                          keep_params: bool = True) -> Callable:
+    """Build (without running) the campaign that :func:`run_campaign`
+    runs: ``fn(lanes) -> (SwarmState, RoundRecord, final losses)``.
+    ``lanes`` is read for its structure only (N, the later axes).  The
+    resolved fused choice is ``fn.fused`` and ``fn.fused_by_agg``.
+
+    Each lane's outputs are copied into preallocated (L, ...) tensors as
+    the lane ends and its own state is dropped, so the campaign holds L
+    final states plus the one in flight, never two copies of them all."""
+    if plan is not None:
+        raise NotImplementedError("a MeshPlan placement is not ported yet "
+                                  "(ROADMAP queue 1, item 13)")
+    if lanes.n_lanes is None:
+        raise ValueError("run_campaign takes a stacked campaign (stack_lanes)")
+    _refuse_later_axes(lanes)
+    n = int(lanes.codes.shape[-1])
+    round_fn = make_round_fn(
+        loss_fn, optimizer, params0, n, aggregator=aggregator,
+        agg_kwargs=agg_kwargs, compression_kind=compression_kind,
+        compression_kwargs=compression_kwargs, verify=verify, fused=fused)
+
+    def program(lanes: LaneParams):
+        batches: Dict[int, list] = {}
+
+        def batch_fn(rnd: int):
+            if rnd not in batches:
+                batches[rnd] = (list(batched_data_fn(rnd)) if batched_data_fn is not None
+                                else [data_fn(i, rnd) for i in range(n)])
+            return batches[rnd]
+
+        out = None
+        for k in range(lanes.n_lanes):
+            run = scan_rounds(round_fn, lanes.lane(k), init_state(params0, optimizer, n),
+                              rounds, batch_fn, eval_fn,
+                              draws_fn=None if draws_fn is None
+                              else functools.partial(draws_fn, k))
+            if not keep_params:
+                run = (run[0]._replace(params=None, opt_state=None), *run[1:])
+            if out is None:
+                out = tree_map(lambda x: x.new_empty((lanes.n_lanes, *x.shape)), run)
+            tree_map(lambda o, x: o[k].copy_(x), out, run)
+            del run
+        return out
+
+    program.fused = round_fn.fused
+    program.fused_by_agg = round_fn.fused_by_agg
+    return program
+
+
+def history_from_records(recs: Union[RoundRecord, Sequence[RoundRecord]],
+                         node_ids: Sequence[str], *, start_round: int = 0) -> List[dict]:
+    """Rebuild the per-round host history from one run's records: a
+    RoundRecord stacked (T, ...) (:func:`scan_rounds`, or one lane of a
+    campaign), or a list of per-round records (:class:`Swarm`), each read
+    as it is."""
+    if not isinstance(recs, RoundRecord):
+        return [history_from_records(tree_map(lambda x: x[None], r), node_ids,
+                                     start_round=start_round + t)[0]
+                for t, r in enumerate(recs)]
+    host = tree_map(lambda x: x.cpu().numpy(), recs)
     return [{
         "round": start_round + t,
-        "n_active": int(r.n_active),
-        "n_byzantine": int(r.n_byzantine),
-        "caught": [node_ids[int(i)] for i in np.flatnonzero(r.caught.cpu().numpy())],
-        "agg_norm": float(r.agg_norm),
-        "consensus_error": float(r.consensus_err),
-        "coverage": float(r.coverage),
-        "staleness": float(r.staleness),
-    } for t, r in enumerate(recs)]
+        "n_active": int(host.n_active[t]),
+        "n_byzantine": int(host.n_byzantine[t]),
+        "caught": [node_ids[int(i)] for i in np.flatnonzero(host.caught[t])],
+        "agg_norm": float(host.agg_norm[t]),
+        "consensus_error": float(host.consensus_err[t]),
+        "coverage": float(host.coverage[t]),
+        "staleness": float(host.staleness[t]),
+    } for t in range(host.agg_norm.shape[0])]
+
+
+def ledger_from_run(state: SwarmState, node_ids: Sequence[str],
+                    verification: Optional[VerificationConfig] = None,
+                    validator: str = "validator") -> Ledger:
+    """Reconstruct the ownership :class:`Ledger` of one run from its device
+    counters, as :class:`Swarm`'s per-round bookkeeping builds it: a node's
+    balance is its speed-weighted kept rounds; a slashed node's pre-catch
+    mints are forfeited (its counter froze at the catch round) and its
+    stake burns, paying the validator jackpot."""
+    led = Ledger()
+    if verification is not None:
+        for nid in node_ids:
+            led.stake(nid, verification.stake)
+    contrib = state.contrib.cpu().numpy()
+    slashed = state.slashed.cpu().numpy()
+    for nid, c in zip(node_ids, contrib):
+        if c > 0:
+            led.record_contribution(nid, float(c))
+    for i in np.flatnonzero(slashed):
+        led.slash(node_ids[int(i)])
+        if verification is not None:
+            led.pay_jackpot(validator, verification.jackpot)
+    return led
 
 
 # ================================ engines ======================================
@@ -435,8 +826,9 @@ class _SwarmBase:
     def run(self, rounds: int, eval_fn: Optional[Callable] = None,
             eval_every: int = 10) -> List[float]:
         """Step rounds 0..rounds-1; ``eval_fn(params)`` every ``eval_every``
-        rounds and after the last.  (The scanned run waits for the campaign
-        slice.)"""
+        rounds and after the last.  (The reference's ``Swarm.run`` scans
+        when no ``eval_fn`` is given; the port always steps, and its scanned
+        run is :func:`scan_rounds`.)"""
         losses = []
         for r in range(rounds):
             rec = self.step(r)
@@ -450,7 +842,8 @@ class Swarm(_SwarmBase):
     """The batched engine: a thin wrapper that steps the round of
     :func:`make_round_fn` and keeps the host ledger.  Inactive nodes still
     occupy a row of the stack (their gradient is computed and then masked),
-    as in the reference.
+    as in the reference.  It also carries the device mint counter
+    (``contrib``) across steps, as a lane of :func:`run_campaign` does.
     """
 
     def __init__(self, loss_fn: Callable, params, optimizer,
@@ -464,6 +857,9 @@ class Swarm(_SwarmBase):
             [_FAR if s.leave_round is None else s.leave_round for s in self.nodes],
             np.int64)
         self._slashed_np = np.zeros(n, bool)
+        #: the device mint counter, carried across steps as a scanned run
+        #: carries it (speed-weighted kept rounds; frozen once slashed)
+        self.contrib = torch.zeros(n, dtype=torch.float32, device=self.device)
         self._core = make_round_fn(
             loss_fn, optimizer, self.params, n,
             aggregator=cfg.aggregator, agg_kwargs=cfg.agg_kwargs,
@@ -479,8 +875,7 @@ class Swarm(_SwarmBase):
         return SwarmState(
             params=self.params, opt_state=self.opt_state,
             slashed=torch.as_tensor(self._slashed_np, device=self.device),
-            contrib=torch.zeros(len(self.nodes), dtype=torch.float32,
-                                device=self.device))
+            contrib=self.contrib)
 
     def step(self, rnd: int, draws: Optional[RoundDraws] = None) -> dict:
         active_np = ((self._joins_np <= rnd) & (rnd < self._leaves_np)
@@ -490,6 +885,7 @@ class Swarm(_SwarmBase):
         batches = [self.data_fn(i, rnd) for i in range(len(self.nodes))]
         state, rec = self._core(self._lane, self._state(), rnd, batches, draws)
         self.params, self.opt_state = state.params, state.opt_state
+        self.contrib = state.contrib
         row = history_from_records([rec], [n.node_id for n in self.nodes],
                                    start_round=rnd)[0]
         for i in np.flatnonzero(rec.caught.cpu().numpy()):

@@ -9,6 +9,7 @@ functional: it returns new tensors and leaves its inputs untouched.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, NamedTuple, Optional, Union
 
@@ -35,6 +36,28 @@ def clip_by_global_norm(grads: Params, max_norm: float) -> Params:
     top = torch.full((), float(max_norm), dtype=torch.float32, device=norm.device)
     scale = torch.clamp(top / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: g * scale for k, g in grads.items()}
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
+    """Linear warmup to ``peak_lr`` over ``warmup`` steps, then a cosine
+    decay to ``floor · peak_lr`` at ``total``: ``lr(step) -> 0-d float32``.
+    The reference's Python-float products (``floor · peak_lr`` and
+    ``(1 − floor) · peak_lr · 0.5``) are formed in double and rounded once;
+    everything that touches the step computes in float32, each constant a
+    float32 tensor (a Python float over a tensor is reciprocal-then-multiply
+    in torch)."""
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        s = torch.as_tensor(step).to(torch.float32)
+
+        def c(x):
+            return torch.full((), float(x), dtype=torch.float32, device=s.device)
+
+        warm = c(peak_lr) * s / c(max(warmup, 1))
+        t = torch.clamp((s - c(warmup)) / c(max(total - warmup, 1)), 0.0, 1.0)
+        cos = c(floor * peak_lr) + c((1 - floor) * peak_lr * 0.5) * (
+            c(1) + torch.cos(c(math.pi) * t))
+        return torch.where(s < c(warmup), warm, cos)
+    return lr
 
 
 def _zeros_like(params: Params) -> Params:

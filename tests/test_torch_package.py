@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import compression, unextractable
+from repro_torch.core import swarm as tswarm
 from repro_torch.core.swarm import make_round_fn
 from repro_torch.data import pipeline
 from repro_torch.device import resolve_device
@@ -29,6 +30,7 @@ from repro_torch.kernels.qsgd import ops as qsgd_ops
 from repro_torch.kernels.qsgd_decode import ops as qdec
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.swa_attention import ops as swa
+from repro_torch.launch import problems
 from repro_torch.launch import protocol_inference as launch_protocol
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import swarm as launch_swarm
@@ -76,7 +78,9 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.models.rwkv6", "repro_torch.kernels.rwkv6_wkv.ops",
             "repro_torch.configs.zamba2_1_2b", "repro_torch.models.mamba2",
             "repro_torch.models.hybrid", "repro_torch.kernels.mamba2_scan.ops",
-            "repro_torch.kernels.qsgd.ops", "repro_torch.kernels.centered_clip.ops"} <= mods
+            "repro_torch.kernels.qsgd.ops", "repro_torch.kernels.centered_clip.ops",
+            "repro_torch.core.scenarios", "repro_torch.core.derailment",
+            "repro_torch.launch.problems"} <= mods
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -111,7 +115,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                  lambda: zamba.init_cache(1, 8),
                  lambda: zamba.concrete_batch(0, 1, 8),
                  lambda: launch_serve.main(["--arch", "zamba2-1.2b"]),
-                 lambda: launch_protocol.main(["--arch", "zamba2-1.2b"])):
+                 lambda: launch_protocol.main(["--arch", "zamba2-1.2b"]),
+                 lambda: problems.tiny_quadratic_problem()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -685,3 +690,103 @@ def test_ssd_kernel_matches_plain_and_repeats_its_bits(cuda, b, s, h, p, n, stro
     y2, hf2 = ssd_ops.ssd_kernel(x, dt, a, bb, cc, d, h0)
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(y.view(bits), y2.view(bits)) and torch.equal(hf, hf2)
+
+
+def _card_quadratic(cuda, d, n, rounds):
+    """A D-parameter quadratic on the card: ``(loss_fn, data_fn)``."""
+    g = torch.Generator().manual_seed(0)
+    target = torch.randn(d, generator=g).to(cuda)
+    xs = {(i, r): torch.randn((4, d), generator=g).to(cuda)
+          for r in range(rounds) for i in range(n)}
+
+    def loss_fn(p, b):
+        return torch.mean(torch.square(b["x"] @ (p["w"] - target)))
+
+    return loss_fn, lambda i, r: {"x": xs[i, r]}
+
+
+def _assert_lane_is_single_run(cuda, out, k, loss_fn, data_fn, nodes, cfg, rounds):
+    """Lane ``k`` of a campaign against its roster and config run alone:
+    params, contrib and history bit-equal to the single-run Swarm, every
+    record field bit-equal to the single-run scan program."""
+    state, recs, _ = out
+    d = state.params["w"].shape[1]
+    sw = tswarm.Swarm(loss_fn, {"w": torch.zeros(d, device=cuda)},
+                      SGD(lr=0.1, momentum=0.0), nodes, cfg, data_fn)
+    assert sw.fused
+    for r in range(rounds):
+        sw.step(r)
+    assert torch.equal(state.params["w"][k].view(torch.int32),
+                       sw.params["w"].view(torch.int32))
+    assert torch.equal(state.contrib[k], sw.contrib)
+    lane_recs = tswarm.lane_slice(recs, k)
+    assert tswarm.history_from_records(lane_recs, [x.node_id for x in nodes]) == sw.history
+    round_fn = make_round_fn(loss_fn, SGD(lr=0.1, momentum=0.0), sw.params, len(nodes),
+                             aggregator=cfg.aggregator, agg_kwargs=cfg.agg_kwargs)
+    run = tswarm.make_scan_program(
+        round_fn, lambda r: [data_fn(i, r) for i in range(len(nodes))], rounds)
+    params0 = {"w": torch.zeros(d, device=cuda)}
+    _, one, _ = run(tswarm.lane_for_nodes(nodes, cfg, cuda),
+                    *tswarm.init_state(params0, SGD(lr=0.1, momentum=0.0), len(nodes)))
+    for field in tswarm.RoundRecord._fields:
+        a, b = getattr(lane_recs, field), getattr(one, field)
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), field
+
+
+def _card_roster(n):
+    return [tswarm.NodeSpec(f"h{i}") for i in range(n - 2)] + [
+        tswarm.NodeSpec(f"adv{i}", byzantine="sign_flip", byzantine_scale=10.0)
+        for i in range(2)]
+
+
+@pytest.mark.cuda
+def test_campaign_lanes_bit_equal_to_single_run_swarms_on_the_card(cuda):
+    """A 3-lane campaign at D = 4,096 on the card (the fused round: the
+    CenteredClip lanes through the median and the chain): each lane
+    bit-equal to the single-run Swarm of its roster and config."""
+    d, n, rounds = 4096, 8, 4
+    loss_fn, data_fn = _card_quadratic(cuda, d, n, rounds)
+    nodes = _card_roster(n)
+    aggs = [("mean", {}), ("centered_clip", {}), ("krum", {"f": 2})]
+    cfgs = [tswarm.SwarmConfig(aggregator=name, agg_kwargs=kw, seed=seed)
+            for (name, kw), seed in zip(aggs, (0, 1, 2))]
+    lanes = tswarm.stack_lanes([tswarm.lane_for_nodes(nodes, c, cuda)._replace(agg_id=k)
+                                for k, c in enumerate(cfgs)])
+    params0 = {"w": torch.zeros(d, device=cuda)}
+    out = tswarm.run_campaign(loss_fn, params0, SGD(lr=0.1, momentum=0.0),
+                              data_fn, lanes, rounds=rounds, aggregator=aggs)
+    for k, cfg in enumerate(cfgs):
+        _assert_lane_is_single_run(cuda, out, k, loss_fn, data_fn, nodes, cfg, rounds)
+
+
+@pytest.mark.cuda
+def test_campaign_mixed_set_runs_the_kernels_on_the_card(cuda):
+    """A set that mixes an aggregator without a fused twin (median) with
+    CenteredClip: on the card the CenteredClip lane still launches the
+    median and the chain every round, as its single-run Swarm does, and
+    stays bit-equal to it; the median lane launches nothing."""
+    d, n, rounds = 4096, 8, 3
+    loss_fn, data_fn = _card_quadratic(cuda, d, n, rounds)
+    nodes = _card_roster(n)
+    aggs = [("centered_clip", {}), ("median", {})]
+    cfgs = [tswarm.SwarmConfig(aggregator=name, seed=seed)
+            for (name, _), seed in zip(aggs, (0, 1))]
+    lanes = tswarm.stack_lanes([tswarm.lane_for_nodes(nodes, c, cuda)._replace(agg_id=k)
+                                for k, c in enumerate(cfgs)])
+    params0 = {"w": torch.zeros(d, device=cuda)}
+    program = tswarm.make_campaign_program(loss_fn, params0, SGD(lr=0.1, momentum=0.0),
+                                           data_fn, lanes, rounds=rounds, aggregator=aggs)
+    assert program.fused_by_agg == (True, False) and not program.fused
+    sw = tswarm.Swarm(loss_fn, {"w": torch.zeros(d, device=cuda)},
+                      SGD(lr=0.1, momentum=0.0), nodes, cfgs[0], data_fn)
+    for k in magg.LAUNCHES:
+        magg.LAUNCHES[k] = 0
+    sw.step(0)
+    one_round = dict(magg.LAUNCHES)
+    assert one_round["masked_median"] == 1 and one_round["masked_cc_iter"] > 0
+    for k in magg.LAUNCHES:
+        magg.LAUNCHES[k] = 0
+    out = program(lanes)
+    assert magg.LAUNCHES == {k: rounds * v for k, v in one_round.items()}
+    _assert_lane_is_single_run(cuda, out, 0, loss_fn, data_fn, nodes, cfgs[0], rounds)
