@@ -87,6 +87,17 @@ Phases, each timed with CUDA events:
    of the showcase from the same init and seed (so the same draws); equal
    ``n_active``, ``caught`` and minted nodes, the two aggregates within
    1e-5 relative L2;
+4c. the decentralized round: ``python -m repro_torch.launch.swarm --full
+   --scenario byzantine_neighborhood --nodes 10 --rounds 2`` (protocol-125m
+   at full width, per-node replicas and AdamW states, a degree-4
+   random-regular graph, 2 sign-flip attackers, CenteredClip): 10 medians
+   and 30 CenteredClip iterations a round, node 3's round-1 aggregate
+   bit-equal to a lone ``masked_centered_clip_fused`` call with its mask
+   and within 3e-5 of the plain version, finite consensus error; two more
+   rounds on CUDA events and their peak memory, one profiled (busy share); then
+   round 0 of the roster on ``fully_connected`` against the centralized
+   round from the same init, agg_norm and the consensus replica's update
+   within 2e-3 (``tests/test_topology.py:160``'s bound);
 10. the §5.5 sweep: ``derailment.sweep`` of the ``no_off_smoke`` grid
    (mean and CenteredClip against 2 and 6 inner-product attackers beside
    6 honest nodes, and the honest baseline: 5 lanes of one campaign, 8
@@ -108,6 +119,24 @@ Phases, each timed with CUDA events:
    the CenteredClip Swarm timed and one profiled for the device's busy
    share of the median round; last the sweep as a user calls it (no
    lane's params kept), its peak memory, its table and losses equal;
+10c. the small LM: the ``no_off_lm`` grid of ``launch/derailment_no_off.py``
+   (mean, CenteredClip and mean under audits at p 0.5 against 1, 4 and 10
+   inner-product attackers at scale 20 beside 8 honest nodes, and the
+   baseline: 10 lanes of N = 18) on ``launch.problems.small_lm_problem``,
+   rounds cut from 30 to 6: the card run free as a user calls it (the CPU
+   run's audit draws handed in; its 3 CenteredClip lanes launch a median
+   and a chain each round), then each round of the card run from the CPU
+   run's state, lane by lane: discrete fields equal, agg_norm within 1e-3
+   until the model blows up (an aggregate norm of 1e3), final losses within
+   1e-4 up to a loss of 100, both within 2e-3 past those (and finite on
+   both sides or neither), the tables from the
+   CPU run and from the card's rounds equal as strings; the free run's
+   table is printed beside them;
+10d. the decentralized sweep: ``no_off_topology_smoke`` (CenteredClip on a
+   ring and on the complete graph against 2 and 6 attackers beside 6
+   honest, 8 rounds, baselines per topology) on the tiny quadratic, card
+   (one median and chain for each node with a kept neighbour, 368) against
+   CPU, held as phase 10;
 7. the serving path (``protocol_serve``): ``python -m
    repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
    --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
@@ -133,11 +162,11 @@ Phases, each timed with CUDA events:
    32768 --batch 1`` (1,590,235,136 params built), with phase 7's checks;
    one served prefill under torch.profiler (device time by kernel, and
    the mean time of each of the WKV kernel's three launches); then
-   ``decode`` of 4 prompts of 1,040 tokens (not a multiple of a chunk), 32
+   ``decode`` of 4 prompts of 392 tokens (not a multiple of a chunk), 32
    new tokens;
 7d. decode against the kernel prefill on a float32 copy of the full-width
    params (where prefill's bf16 cast of w does nothing): each layer's
-   recurrent state after stepping the 1,040-token prompts within 1e-4
+   recurrent state after stepping the 392-token prompts within 1e-4
    relative L2 of the kernel's s_final, the last logits within 1e-3; the
    bf16 gap of the served params (the reference's quirk) is printed, not
    held;
@@ -155,9 +184,9 @@ Phases, each timed with CUDA events:
    shared block's attention runs the sliding-window kernel at window = S
    (6 launches a prefill); one served prefill under torch.profiler (device
    time by kernel, and the mean time of each of the SSD kernel's three
-   launches); then ``decode`` of 4 prompts of 1,040 tokens, 32 new tokens;
+   launches); then ``decode`` of 4 prompts of 392 tokens, 32 new tokens;
 7f. decode against the kernel prefill on a float32 copy of the full-width
-   params, teacher-forced: each layer stepped through the 1,040-token
+   params, teacher-forced: each layer stepped through the 392-token
    prompts from the prefill's input to it; each mamba layer's SSD state
    within 1e-4 relative L2 of the kernel's h_final, each application's K/V
    cache equal to the prefill's k, v within 1e-5, each layer's update and
@@ -189,7 +218,8 @@ Phases, each timed with CUDA events:
    ``flex_attention`` with a sliding-window block mask, zamba2's causal
    triangle against ``scaled_dot_product_attention(is_causal=True)``).
 
-Each driven path (phases 4, 4b, 5, 7, 7c, 7e, 10 and 10b) has launch counters of its own:
+Each driven path (phases 4, 4b, 4c, 5, 7, 7c, 7e, 10, 10b, 10c and 10d) has launch
+counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
@@ -232,7 +262,9 @@ WRAP_STEPS = 128
 WKV_SHAPE = dict(b=1, s=32_768, h=32, k=64)
 RWKV_LAYERS = 24
 RWKV_PARAMS = 1_590_235_136     # the params built (param_count() says 1,929,480,192)
-RWKV_DECODE_LEN = 1_040         # not a multiple of the kernel's 64-token chunk
+# 6 chunks and 8 tokens: not a multiple of the kernel's 64-token chunk (cut
+# from 1,040 to keep the script's time with phases 4c, 10c and 10d added)
+RWKV_DECODE_LEN = 392
 # the zamba2 serving path: zamba2-1.2b's prefill at the same length
 SSD_SHAPE = dict(b=1, s=32_768, h=64, p=64, n=64)
 ZAMBA_LAYERS = 38               # Mamba2 layers: one ssd_scan launch each a prefill
@@ -244,13 +276,31 @@ CAUSAL_SHAPE = dict(b=1, s=32_768, hq=32, hkv=32, hd=64, window=32_768)
 # plain version with p rounded to bf16 (the control, which must exceed it)
 SWA_ROW_REL = 6e-4
 ZAMBA_PARAMS = 1_170_157_696    # the params built (param_count() says 1,170,155,264)
-ZAMBA_DECODE_LEN = 1_040        # not a multiple of the kernel's 64-token chunk
+ZAMBA_DECODE_LEN = 392          # as RWKV_DECODE_LEN
 # the §5.5 sweep: no_off_smoke (mean and CenteredClip at 2 and 6 attackers
 # beside 6 honest nodes, one seed, and the honest baseline: 5 lanes of N =
 # 12), its 2 CenteredClip lanes; 8 rounds on the tiny quadratic, cut to 2
 # at protocol-125m's full width
 NO_OFF_CC_LANES, NO_OFF_ROUNDS, NO_OFF_ROUNDS_125M = 2, 8, 2
 NO_OFF_LOSS_REL = 1e-4          # card against CPU, finite final and baseline losses
+# phase 4c: byzantine_neighborhood at full width (10 nodes on a degree-4
+# random-regular graph, 2 sign-flip attackers, CenteredClip), 2 rounds; each
+# node aggregates its neighbourhood: a median and a chain of 3 a node a round
+DEC_ROUNDS = 2
+DEC_HELD_CALL = N_NODES + 3     # node 3's aggregation in round 1, held against a lone call
+FC_AGG_REL = 2e-3               # fully_connected == centralized (tests/test_topology.py:160)
+# phase 10c: the no_off_lm grid of launch/derailment_no_off.py (3 regimes x
+# 1, 4, 10 attackers beside 8 honest, and the baseline: 10 lanes of N = 18)
+# on the small LM, its 30 rounds cut to 6 (the phase's time); each round of
+# the card run from the CPU run's state: agg_norm within NO_OFF_LM_AGG_REL
+# while the model has not blown up (an aggregate norm up to BLOWN_UP), final
+# losses within NO_OFF_LM_LOSS_REL up to BLOWN_UP_LOSS (init 5.9); past
+# those the lr-0.5 LM's float32 gradients are ill-conditioned, and both are
+# held within NO_OFF_LM_BLOWN_REL (a blown-up final loss read 3.1e-4 apart)
+# and finite on both sides or neither
+NO_OFF_LM_ROUNDS, NO_OFF_LM_CC_LANES = 6, 3
+NO_OFF_LM_AGG_REL, NO_OFF_LM_LOSS_REL, BLOWN_UP, BLOWN_UP_LOSS = 1e-3, 1e-4, 1e3, 1e2
+NO_OFF_LM_BLOWN_REL = 2e-3
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own[,
 # the launch counter, where the row is the kernel at another path's shape])
@@ -301,6 +351,12 @@ EXPECTED_LAUNCHES = {
     # CenteredClip cell's single-run Swarm (the mean cell's launches none)
     "no_off_smoke_125m": {k: (NO_OFF_CC_LANES + 1) * NO_OFF_ROUNDS_125M * v
                           for k, v in _CC_ROUND.items()},
+    # the decentralized round at full width: each node's neighbourhood
+    "byzantine_neighborhood": {k: N_NODES * DEC_ROUNDS * v for k, v in _CC_ROUND.items()},
+    # the small LM's no_off_lm sweep: its 3 CenteredClip lanes, each round
+    "no_off_lm": {k: NO_OFF_LM_CC_LANES * NO_OFF_LM_ROUNDS * v for k, v in _CC_ROUND.items()},
+    # no_off_topology_smoke's entry is set by phase 10d from its graphs (one
+    # CenteredClip round for each node with a kept neighbour: 368 a sweep)
     "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
     "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
     "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS,
@@ -445,7 +501,14 @@ class Smoke:
                    lambda: self.engines_agree(main_out))
         main_out.pop("swarm")
         self.free()
+        torch.cuda.reset_peak_memory_stats()
+        self.phase("4c decentralized round (byzantine_neighborhood, full width)",
+                   self.decentralized_path)
+        self.free()
         self.phase("10 no_off_smoke on the tiny quadratic, card vs CPU", self.no_off_smoke)
+        self.phase("10c no_off_lm on the small LM, card vs CPU", self.no_off_lm)
+        self.phase("10d no_off_topology_smoke on the tiny quadratic, card vs CPU",
+                   self.no_off_topology)
         torch.cuda.reset_peak_memory_stats()
         self.phase("10b no_off_smoke campaign on protocol-125m (full width)",
                    lambda: self.campaign_full_width(main_out["problem"]))
@@ -829,7 +892,7 @@ class Smoke:
         cases = [(main, torch.bfloat16, "model", False)] + [
             (shape, dt, decay, h0) for shape, decay, h0 in (
                 ((1, 1, 4, 64, 64), "model", True),        # one token
-                ((2, 1040, 4, 64, 64), "model", True),     # the decode's prompt length
+                ((2, 1040, 4, 64, 64), "model", True),     # 16 chunks and 16 tokens
                 ((1, 997, 3, 32, 16), "strong", True),     # a prime S, strong decay
                 ((1, 300, 2, 48, 128), "model", False),
                 ((2, 77, 2, 16, 48), "strong", False),
@@ -1137,16 +1200,25 @@ class Smoke:
             return derailment.sweep(loss_fn, params, opt, data_fn, eval_fn, grid)
 
         card = self.counted("no_off_smoke", lambda: run("cuda"))
-        cpu = run("cpu")
+        self.hold_tables("no_off_smoke (tiny quadratic, 16 params)", card, run("cpu"),
+                         NO_OFF_LOSS_REL)
+
+    def show_table(self, what, res, rounds):
+        print(f"  {what} phase table ({res.n_runs} lanes, {rounds} rounds, "
+              f"{res.wall_s:.3f} s):\n"
+              + "\n".join("    " + line for line in res.phase_table().splitlines()), flush=True)
+
+    def hold_tables(self, what, card, cpu, loss_rel):
+        """Card against CPU: the phase tables equal as strings, each cell's
+        discrete fields equal, finite final and baseline losses within
+        ``loss_rel`` relative, a non-finite loss non-finite on both."""
+        self.show_table(f"{what} on the card", card, card.grid.rounds)
         table = card.phase_table()
-        print("  no_off_smoke phase table on the card (tiny quadratic, 16 params, "
-              f"{card.n_runs} lanes, {grid.rounds} rounds, {card.wall_s:.3f} s):\n"
-              + "\n".join("    " + line for line in table.splitlines()), flush=True)
         check(table == cpu.phase_table(),
               f"phase tables differ, card:\n{table}\nCPU:\n{cpu.phase_table()}")
         worst = 0.0
         for a, b in zip(card.results, cpu.results):
-            for field in ("regime", "n_attackers", "derailed", "attackers_slashed"):
+            for field in ("regime", "topology", "n_attackers", "derailed", "attackers_slashed"):
                 check(getattr(a, field) == getattr(b, field),
                       f"{field} differs card vs CPU: {a} / {b}")
             for field in ("final_loss", "baseline_loss"):
@@ -1155,10 +1227,275 @@ class Smoke:
                 if math.isfinite(y):
                     rel = abs(x - y) / max(abs(y), 1e-30)
                     worst = max(worst, rel)
-                    check(rel <= NO_OFF_LOSS_REL, f"{field} {x} vs {y}, rel {rel:.3e}")
+                    check(rel <= loss_rel, f"{field} {x} vs {y}, rel {rel:.3e}")
         print(f"  card vs CPU: tables equal, discrete fields equal, losses within "
-              f"{worst:.3e} relative (bound {NO_OFF_LOSS_REL:g}); final losses "
+              f"{worst:.3e} relative (bound {loss_rel:g}); final losses "
               f"{[r.final_loss for r in card.results]}", flush=True)
+
+    def decentralized_path(self):
+        """Phase 4c: ``python -m repro_torch.launch.swarm --full --scenario
+        byzantine_neighborhood --nodes 10 --rounds 2`` on counters of its
+        own: per-node replicas, each node's neighbourhood through the masked
+        median and the CenteredClip chain, the gossip mix.  Node 3's round-1
+        aggregate (recorded with its stack and mask as the round makes it)
+        bit-equal to a lone ``masked_centered_clip_fused`` call and within
+        3e-5 of the plain version; finite consensus error and losses; then
+        rounds timed on CUDA events, one profiled (the busy share), the peak
+        memory; last one round of the roster on ``fully_connected`` against
+        the centralized round from the same state."""
+        torch = self.torch
+        from repro_torch.kernels.masked_agg import ops as magg
+        from repro_torch.launch import swarm as launch
+        fused_cc = magg.FUSED_MASKED_AGGREGATORS["centered_clip"]
+        held, calls = {}, [0]
+
+        def recording(updates, mask, **kw):
+            out = fused_cc(updates, mask, **kw)
+            if calls[0] == DEC_HELD_CALL:
+                held.update(x=updates.clone(), mask=mask.clone(), out=out.clone(), kw=kw)
+            calls[0] += 1
+            return out
+
+        magg.FUSED_MASKED_AGGREGATORS["centered_clip"] = recording
+        try:
+            out = self.counted("byzantine_neighborhood", lambda: launch.main(
+                ["--full", "--scenario", "byzantine_neighborhood", "--nodes", str(N_NODES),
+                 "--rounds", str(DEC_ROUNDS)]))
+        finally:
+            magg.FUSED_MASKED_AGGREGATORS["centered_clip"] = fused_cc
+        torch.cuda.synchronize()
+        sw = out["swarm"]
+        w = sw._lane.mixing
+        check(sw.fused, "byzantine_neighborhood: the card's neighbourhoods should be fused")
+        check(tuple(sw.params["embed"].shape[:1]) == (N_NODES,), "not per-node replicas")
+        check(all(math.isfinite(l) for l in out["losses"]), "non-finite loss")
+        check(all(math.isfinite(h["consensus_error"]) and h["consensus_error"] > 0
+                  for h in sw.history), f"consensus_error {[h['consensus_error'] for h in sw.history]}")
+        check(sw.ledger.check_conservation() and not sw.slashed, "ledger or slashing off")
+        node = DEC_HELD_CALL % N_NODES
+        check(calls[0] == N_NODES * DEC_ROUNDS and torch.equal(held["mask"], w[node] > 0),
+              "the recorded aggregation is not node 3's neighbourhood")
+        lone = magg.masked_centered_clip_fused(held["x"], held["mask"], **held["kw"])
+        check(self.bit_equal(lone, held["out"]),
+              "node 3's aggregate differs from a lone masked_centered_clip_fused call")
+        v = magg.masked_median_plain(held["x"], held["mask"])
+        for _ in range(CC_ITERS):
+            v = magg.masked_cc_iter_plain(held["x"], v, held["mask"], None)
+        err = float((held["out"] - v).abs().max())
+        check(bool(((held["out"] - v).abs() <= 3e-5 + 3e-5 * v.abs()).all()),
+              f"node 3's aggregate beyond 3e-5 of the plain version ({err:.3e})")
+        del lone, v
+        degrees = (w > 0).sum(1).tolist()
+        print(f"  byzantine_neighborhood: {N_NODES} replicas, neighbourhoods of "
+              f"{degrees} nodes (self included); node {node}'s round-1 aggregate bit-equal "
+              f"to a lone masked_centered_clip_fused call, max abs {err:.3e} from the plain "
+              f"version; consensus_error {[h['consensus_error'] for h in sw.history]}; "
+              f"losses {out['losses']}; launcher {out['seconds'] / out['rounds']:.3f} s/round",
+              flush=True)
+        held.clear()
+        self.free()
+        # the peak of rounds without the check's copy of the stack: the
+        # engine's state beside the round's
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for r in range(DEC_ROUNDS, DEC_ROUNDS + 2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            sw.step(r)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        wall_ms, events, busy_ms = self.profiled_round(sw, DEC_ROUNDS + 2)
+        print(f"  decentralized rounds on CUDA events: {[round(x, 1) for x in ms]} ms, "
+              f"max_memory_allocated {peak / 2**30:.2f} GiB; "
+              f"profiled round {wall_ms:.1f} ms wall with the profiler on, device busy "
+              f"{busy_ms:.1f} ms = {busy_ms / min(ms):.1%} of the faster unprofiled round",
+              flush=True)
+        for e in sorted(events, key=self_dev, reverse=True)[:10]:
+            print(f"    {self_dev(e):9.2f} ms  x{e.count:<5d} {e.key[:90]}", flush=True)
+        problem, nodes, cfg = out["problem"], out["nodes"], sw.cfg
+        del out, sw, events
+        self.free()
+        self.fully_connected_vs_centralized(problem, nodes, cfg)
+
+    def fully_connected_vs_centralized(self, problem, nodes, cfg):
+        """Round 0 of the roster on ``fully_connected`` (every replica
+        aggregates every kept node, then the mix of identical replicas)
+        against the centralized round from the same init: equal
+        ``n_active`` and ``caught``, agg_norm within FC_AGG_REL, the
+        consensus replica within FC_AGG_REL of the centralized params'
+        update (relative L2)."""
+        from dataclasses import replace
+        from repro_torch.launch import swarm as launch
+        from repro_torch.models.convert import flatten
+        recs, flat = {}, {}
+        for topo in ("fully_connected", None):
+            sw = launch.make_showcase_swarm(problem, nodes, replace(cfg, topology=topo))
+            recs[topo] = sw.step(0)
+            flat[topo] = flatten(sw.eval_params())
+            del sw
+            self.free()
+        a, b = recs["fully_connected"], recs[None]
+        check((a["n_active"], a["caught"]) == (b["n_active"], b["caught"]),
+              "fully_connected and centralized differ in n_active or caught")
+        agg_rel = abs(a["agg_norm"] - b["agg_norm"]) / b["agg_norm"]
+        p0 = flatten(problem.params)
+        par_rel = float((flat["fully_connected"] - flat[None]).norm() / (flat[None] - p0).norm())
+        print(f"  fully_connected vs centralized, round 0: agg_norm {a['agg_norm']:.6f} vs "
+              f"{b['agg_norm']:.6f} (rel {agg_rel:.3e}), consensus_error "
+              f"{a['consensus_error']:.3e}, |dparams|/|update| {par_rel:.3e} (bound "
+              f"{FC_AGG_REL:g})", flush=True)
+        check(agg_rel <= FC_AGG_REL and par_rel <= FC_AGG_REL,
+              "fully_connected parts from the centralized round")
+
+    def no_off_lm(self):
+        """Phase 10c: the no_off_lm grid of ``launch/derailment_no_off.py``
+        on ``launch.problems.small_lm_problem`` (rounds cut to
+        NO_OFF_LM_ROUNDS), run free on the card as a user calls it (on
+        counters of its own, the CPU run's audit draws handed in), then
+        lane by lane on the CPU with each round of the card run from the
+        CPU's state: every round's discrete fields equal, agg_norm within
+        NO_OFF_LM_AGG_REL until the model blows up, the final losses within
+        NO_OFF_LM_LOSS_REL where the lane has not blown up, both within
+        NO_OFF_LM_BLOWN_REL where it has (finite on both sides or neither),
+        and the phase tables from the CPU run and from
+        the card's rounds equal as strings.  The free card run's table is
+        printed beside the CPU's (the lr-0.5 LM multiplies a float
+        difference ~30x a round, so free runs part)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import derailment
+        from repro_torch.core import swarm as tswarm
+        from repro_torch.launch import derailment_no_off, problems
+        from repro_torch.models.convert import flat_size, layout_of
+        from repro_torch.random import RoundDraws, RoundRandom
+        grid = derailment_no_off.no_off_lm_grid(rounds=NO_OFF_LM_ROUNDS)
+        spec = derailment.build_sweep_lanes(grid)
+        n, rounds, cpu = spec.n_total, grid.rounds, torch.device("cpu")
+        kl, kp, kd, ke, ko = problems.small_lm_problem("cuda")
+        cl, cp, cd, ce, co = problems.small_lm_problem("cpu")
+        d = flat_size(layout_of(cp))
+
+        def draws(j, rnd):
+            """The CPU run's audit draws of lane j, round rnd."""
+            rr = RoundRandom(spec.lanes[j].seed, rnd, cpu)
+            noise = (torch.stack([rr.audit_noise(i, d) for i in range(n)])
+                     if spec.lanes[j].p_check > 0 else None)
+            return RoundDraws(audit_sel=torch.stack([rr.audit_sel(i) for i in range(n)]),
+                              audit_noise=noise)
+
+        free = self.counted("no_off_lm", lambda: derailment.sweep(kl, kp, ko, kd, ke, grid,
+                                                                   draws_fn=draws))
+        args = dict(aggregator=spec.aggregator, agg_kwargs=spec.agg_kwargs, verify=spec.verify)
+        cpu_round = tswarm.make_round_fn(cl, co, cp, n, **args)
+        card_round = tswarm.make_round_fn(kl, ko, kp, n, **args)
+        cpu_lanes, card_lanes = (tswarm.stack_lanes(spec.lanes, device=x)
+                                 for x in (cpu, self.dev))
+        finals = {"cpu": [], "card": []}
+        slashed = {"cpu": [], "card": []}
+        worst_agg = worst_loss = 0.0
+        blown = {"agg_norm": [], "final loss": []}     # (rel, what) past blow-up
+        t0 = time.time()
+        for j in range(len(spec.lanes)):
+            st = tswarm.init_state(cp, co, n)
+            for r in range(rounds):
+                kst = tswarm.tree_map(lambda x: x.to(self.dev), st)
+                st, rec = cpu_round(cpu_lanes.lane(j), st, r, [cd(i, r) for i in range(n)])
+                kst, krec = card_round(card_lanes.lane(j), kst, r, [kd(i, r) for i in range(n)],
+                                       draws(j, r))
+                for field in ("n_active", "caught", "keep"):
+                    check(torch.equal(getattr(krec, field).cpu(), getattr(rec, field)),
+                          f"lane {j} round {r}: {field} differs card vs CPU")
+                a, b = float(krec.agg_norm), float(rec.agg_norm)
+                check(math.isfinite(a) == math.isfinite(b), f"lane {j} round {r}: agg_norm")
+                if math.isfinite(b):
+                    rel = abs(a - b) / max(abs(b), 1e-30)
+                    if b <= BLOWN_UP:
+                        worst_agg = max(worst_agg, rel)
+                        check(rel <= NO_OFF_LM_AGG_REL,
+                              f"lane {j} round {r}: agg_norm {a} vs {b} (rel {rel:.3e})")
+                    else:
+                        blown["agg_norm"].append((rel, f"lane {j} round {r}: {a} vs {b}"))
+            with torch.no_grad():
+                finals["cpu"].append(float(ce(st.params)))
+                finals["card"].append(float(ke(kst.params)))
+            slashed["cpu"].append(st.slashed.numpy())
+            slashed["card"].append(kst.slashed.cpu().numpy())
+            x, y = finals["card"][-1], finals["cpu"][-1]
+            check(math.isfinite(x) == math.isfinite(y), f"lane {j}: final loss finite on one side")
+            if math.isfinite(y) and abs(y) <= BLOWN_UP_LOSS:
+                worst_loss = max(worst_loss, abs(x - y) / abs(y))
+                check(abs(x - y) <= NO_OFF_LM_LOSS_REL * abs(y),
+                      f"lane {j}: final loss {x} vs {y}")
+            elif math.isfinite(y):
+                blown["final loss"].append((abs(x - y) / abs(y), f"lane {j}: {x} vs {y}"))
+        init_loss = float(ce(cp))
+        res = {k: derailment.SweepResult(
+            grid=grid, results=derailment.sweep_results(spec, np.array(finals[k]),
+                                                         np.stack(slashed[k]), init_loss),
+            n_programs=1, n_runs=len(spec.lanes), wall_s=time.time() - t0) for k in finals}
+        self.show_table("no_off_lm on the CPU", res["cpu"], rounds)
+        check(res["card"].phase_table() == res["cpu"].phase_table(),
+              "no_off_lm: the table of the card's rounds differs from the CPU's:\n"
+              + res["card"].phase_table())
+        print(f"  the card's rounds from the CPU's states: tables equal, discrete fields "
+              f"equal, agg_norm within {worst_agg:.3e} until blow-up (bound "
+              f"{NO_OFF_LM_AGG_REL:g}), final losses within {worst_loss:.3e} (bound "
+              f"{NO_OFF_LM_LOSS_REL:g}) up to {BLOWN_UP_LOSS:g}; "
+              f"{res['cpu'].wall_s:.1f} s for both", flush=True)
+        for what, gaps in blown.items():
+            worst = max(gaps, default=(0.0, "none"))
+            print(f"  past blow-up: {len(gaps)} {what} readings, worst {worst[0]:.3e} "
+                  f"relative ({worst[1]}; bound {NO_OFF_LM_BLOWN_REL:g})", flush=True)
+        for what, gaps in blown.items():
+            for rel, where in gaps:
+                check(rel <= NO_OFF_LM_BLOWN_REL,
+                      f"no_off_lm past blow-up: {what} {where} (rel {rel:.3e})")
+        self.show_table("no_off_lm run free on the card", free, rounds)
+        same = free.phase_table() == res["cpu"].phase_table()
+        gaps = [abs(a.final_loss - b.final_loss) / abs(b.final_loss)
+                for a, b in zip(free.results, res["cpu"].results)
+                if math.isfinite(a.final_loss) and math.isfinite(b.final_loss)]
+        print(f"  free card run against the CPU run: tables {'equal' if same else 'differ'}, "
+              f"verdicts differing in {sum(a.derailed != b.derailed for a, b in zip(free.results, res['cpu'].results))} "
+              f"of {len(free.results)} cells, finite final losses within "
+              f"{max(gaps, default=0.0):.3e} relative; init loss {init_loss:.6f}", flush=True)
+        check(all(math.isfinite(r.baseline_loss) for r in free.results),
+              "no_off_lm: non-finite baseline on the card")
+
+    def no_off_topology(self):
+        """Phase 10d: the ``no_off_topology_smoke`` sweep (CenteredClip on a
+        ring and on the complete graph, 2 and 6 attackers beside 6 honest,
+        8 rounds; the decentralized round) on the tiny quadratic, on the
+        card (each node's neighbourhood through the median and the chain,
+        on counters of its own: one CenteredClip round for each lane, round
+        and node with a kept neighbour) and on the CPU, tables and cells
+        held as phase 10's."""
+        from repro_torch.core import derailment, scenarios
+        from repro_torch.launch import problems
+        grid = scenarios.get_sweep_grid("no_off_topology_smoke")
+        spec = derailment.build_sweep_lanes(grid)
+        rounds_cc = 0
+        for lane, meta in zip(spec.lanes, spec.metas):
+            if meta[0] is not None and meta[0].aggregator == "centered_clip":
+                for r in range(grid.rounds):
+                    active = (lane.joins <= r) & (r < lane.leaves)
+                    rounds_cc += int(((lane.mixing > 0) & active[None, :]).any(1).sum())
+        EXPECTED_LAUNCHES["no_off_topology_smoke"] = {
+            k: rounds_cc * v for k, v in _CC_ROUND.items()}
+        n_cc = sum(m[0] is not None for m in spec.metas)
+        print(f"  no_off_topology_smoke: {rounds_cc} of the {n_cc * spec.n_total * grid.rounds} "
+              "node-rounds of its CenteredClip lanes aggregate a kept neighbourhood", flush=True)
+
+        def run(device):
+            loss_fn, params, data_fn, eval_fn, opt = problems.tiny_quadratic_problem(
+                device=device)
+            return derailment.sweep(loss_fn, params, opt, data_fn, eval_fn, grid)
+
+        card = self.counted("no_off_topology_smoke", lambda: run("cuda"))
+        self.hold_tables("no_off_topology_smoke (tiny quadratic, 16 params)", card,
+                         run("cpu"), NO_OFF_LOSS_REL)
 
     def campaign_full_width(self, problem):
         """Phase 10b: ``no_off_smoke`` as one campaign at protocol-125m's
@@ -1617,7 +1954,7 @@ class Smoke:
 
     def protocol_serve_rwkv6(self):
         """The serving path on full-width rwkv6-1.6b, on counters of its
-        own; phase 7's checks, then a decode of prompts of 1,040 tokens."""
+        own; phase 7's checks, then a decode of prompts of RWKV_DECODE_LEN tokens."""
         torch = self.torch
         from repro_torch.launch import protocol_inference as launch
 
@@ -1768,7 +2105,7 @@ class Smoke:
     def protocol_serve_zamba2(self):
         """The serving path on full-width zamba2-1.2b, on counters of its
         own; phase 7's checks and the peak memory, then a decode of prompts
-        of 1,040 tokens."""
+        of ZAMBA_DECODE_LEN tokens."""
         torch = self.torch
         from repro_torch.launch import protocol_inference as launch
 

@@ -14,17 +14,18 @@ and the verification regime:
   than it damages; the paper concludes only physical intervention remains.
 
 ``simulate_derailment`` measures one point on a real training run;
-``sweep`` measures the whole **phase diagram** — every (attacker count,
-scale, seed) cell of every (aggregator, verification) regime of a
-``scenarios.SweepGrid``, plus an honest baseline per seed — as the lanes of
-one ``swarm.run_campaign``, the regimes routed by each lane's aggregator id
-and audit rate.  ``attack_cost`` prices the attack (compute + slashed
-stakes); ``no_off_report`` renders the table row by row.
+``sweep`` measures the whole **phase diagram** — every (topology, attacker
+count, scale, seed) cell of every (aggregator, verification) regime of a
+``scenarios.SweepGrid``, plus an honest baseline per (topology, seed) — as
+the lanes of one ``swarm.run_campaign``, the regimes routed by each lane's
+aggregator id and audit rate, the topologies by each lane's mixing matrix
+(the decentralized round).  ``attack_cost`` prices the attack (compute +
+slashed stakes); ``no_off_report`` renders the table row by row.
 
 The reference's later axes raise ``NotImplementedError`` naming their
-ROADMAP queue 1 item where a sweep reaches them: topologies (8), staleness
-bounds (9), custody and the extractability table (7), the economy axes and
-their tables (10), and a ``MeshPlan`` placement (13).
+ROADMAP queue 1 item where a sweep reaches them: staleness bounds (9),
+custody and the extractability table (7), the economy axes and their
+tables (10), and a ``MeshPlan`` placement (13).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import topology as topo_mod
 from repro_torch.core.scenarios import Regime, SweepGrid
 from repro_torch.core.swarm import (
     BEHAVIOUR_CODES,
@@ -46,6 +48,7 @@ from repro_torch.core.swarm import (
     stack_lanes,
 )
 from repro_torch.core.verification import VerificationConfig
+from repro_torch.random import RoundDraws
 
 _FAR = int(np.iinfo(np.int32).max)
 
@@ -134,7 +137,11 @@ def simulate_derailment(loss_fn, init_params, optimizer, data_fn, eval_fn, *,
     Pass ``baseline_loss`` when sweeping many points against one honest
     baseline — otherwise *each call* re-trains the honest swarm from
     scratch.  ``engine`` is ``"batched"`` or ``"sequential"``.
-    ``topology`` (item 8) and ``staleness_bound`` (item 9) raise through
+    ``topology`` (a ``core.topology`` name) runs the point in the
+    decentralized round; the baseline is then trained on the same
+    topology, over a graph the size of the attacked swarm's (the attacker
+    slots ride as never-joining relays), so the ratio isolates the attack
+    and not the graph.  ``staleness_bound`` (item 9) raises through
     ``SwarmConfig``.  ``return_swarm=True`` returns ``(result, swarm)``,
     the attacked swarm after its run.  For whole phase diagrams use
     :func:`sweep`, which shares the baseline and runs every point of every
@@ -153,6 +160,11 @@ def simulate_derailment(loss_fn, init_params, optimizer, data_fn, eval_fn, *,
     if baseline_loss is None:
         base_nodes = [NodeSpec(f"h{i}", delay=staleness_bound)
                       for i in range(n_honest)]
+        if topology is not None:
+            # the mixing graph the size of the attacked swarm's, as the
+            # sweep's count = 0 baseline lanes have it
+            base_nodes += [NodeSpec(f"adv{i}", join_round=_FAR)
+                           for i in range(n_attack)]
         base = make_swarm(loss_fn, init_params, optimizer, base_nodes,
                           SwarmConfig(aggregator="mean", seed=seed,
                                       topology=topology,
@@ -208,9 +220,10 @@ class SweepResult:
     def phase_table(self) -> str:
         """The §5.5 phase diagram: derailed-seed counts per (regime [,
         topology][, staleness bound], attacker fraction) cell,
-        attackers-slashed appended when any.  (The topology and staleness
-        labels follow the reference's layout; no port sweep has those axes
-        yet.)"""
+        attackers-slashed appended when any.  Topology-axis sweeps get one
+        row per (regime, topology), labelled ``regime@topology``.  (The
+        staleness label follows the reference's layout; no port sweep has
+        that axis yet.)"""
         fracs = sorted({r.attacker_fraction for r in self.results})
         sbounds: Tuple = self.grid.staleness_bounds or (None,)
         rows: List[Tuple[str, str, Optional[int]]] = []
@@ -251,13 +264,20 @@ class SweepResult:
 def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
                 scale: float, seed: int,
                 v: Optional[VerificationConfig],
-                agg_id: int, agg_kwargs: Dict) -> LaneParams:
+                agg_id: int, agg_kwargs: Dict,
+                mixing: Optional[np.ndarray] = None) -> LaneParams:
     """One run lane: honest nodes first, ``count`` attackers, then padding
     that never joins (all regimes share a fixed N so they run as one
     campaign).  Node indices — and therefore the ``(seed, purpose, round,
     node)`` draws — match the single-run ``Swarm`` built by
     ``simulate_derailment`` exactly.  Roster fields are host (numpy)
-    arrays: ``stack_lanes`` moves each stacked field to the device once."""
+    arrays: ``stack_lanes`` moves each stacked field to the device once.
+    ``mixing`` (decentralized sweeps) is this lane's topology matrix over
+    all ``n_total`` slots: padding slots sit in the graph as silent relays
+    (they mix and update, never contribute), which holds the graph fixed
+    across attacker counts, so a decentralized cell equals its
+    ``simulate_derailment(topology=...)`` twin, whose graph spans its own
+    roster, only at ``count == max(attacker_counts)``."""
     codes = np.zeros(n_total, np.int32)
     codes[n_honest:n_honest + count] = code
     scales = np.full(n_total, 10.0, np.float32)     # NodeSpec default
@@ -276,6 +296,7 @@ def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
         numeric_noise=float(v.numeric_noise) if v else 0.0,
         agg_kwargs={k: np.asarray(x) for k, x in agg_kwargs.items()},
         agg_id=int(agg_id),
+        mixing=mixing,
     )
 
 
@@ -305,7 +326,7 @@ class SweepProgramSpec:
 
 
 #: a SweepGrid's later-axis fields -> the ROADMAP queue 1 item each waits for
-_GRID_AXES = (("topologies", 8), ("staleness_bounds", 9), ("redundancies", 7),
+_GRID_AXES = (("staleness_bounds", 9), ("redundancies", 7),
               ("coalition_fractions", 7), ("identity_costs", 10), ("fees", 10),
               ("reward_schedules", 10), ("adaptive", 10))
 
@@ -323,7 +344,7 @@ def build_sweep_lanes(grid: SweepGrid) -> SweepProgramSpec:
     phase diagram — the grid cells, plus the shared honest baselines —
     without running anything.  See :class:`SweepProgramSpec`.  The lanes,
     their order and their metadata are the reference's for every grid of
-    the centralized synchronous round."""
+    the synchronous round, centralized or over ``grid.topologies``."""
     _refuse_later_axes(grid)
     n_honest = grid.n_honest
     n_total = n_honest + max(grid.attacker_counts)
@@ -346,21 +367,30 @@ def build_sweep_lanes(grid: SweepGrid) -> SweepProgramSpec:
     def lane_kw(count):
         return {"f": max(1, count)} if need_f else {}
 
+    # the decentralized axis: one Metropolis matrix per named topology over
+    # all n_total slots, drawn at seed 0 (padding slots are silent relays)
+    topos = grid.topologies or ("",)
+    mixings = {t: (topo_mod.mixing_matrix(t, n_total, seed=0).astype(np.float32)
+                   if t else None) for t in topos}
+
     lanes, metas = [], []
     for reg in grid.regimes:
         aid = agg_index[(reg.aggregator, tuple(sorted(reg.agg_kwargs.items())))]
-        for count in grid.attacker_counts:
-            for scale in grid.scales:
-                for seed in grid.seeds:
-                    lanes.append(_sweep_lane(n_total, n_honest, count, code, scale,
-                                             seed, reg.verification, aid,
-                                             lane_kw(count)))
-                    metas.append((reg, "", 0, 0, 0.0, count, scale, seed,
-                                  None, None, None, None))
-    for seed in grid.seeds:              # baseline lanes (count = 0), one a seed
-        lanes.append(_sweep_lane(n_total, n_honest, 0, code, 0.0, seed, None,
-                                 agg_index[("mean", ())], lane_kw(0)))
-        metas.append((None, "", 0, 0, 0.0, 0, 0.0, seed, None, None, None, False))
+        for topo in topos:
+            for count in grid.attacker_counts:
+                for scale in grid.scales:
+                    for seed in grid.seeds:
+                        lanes.append(_sweep_lane(n_total, n_honest, count, code, scale,
+                                                 seed, reg.verification, aid,
+                                                 lane_kw(count), mixing=mixings[topo]))
+                        metas.append((reg, topo, 0, 0, 0.0, count, scale, seed,
+                                      None, None, None, None))
+    for topo in topos:                   # baseline lanes (count = 0), one a
+        for seed in grid.seeds:          # (topology, seed)
+            lanes.append(_sweep_lane(n_total, n_honest, 0, code, 0.0, seed, None,
+                                     agg_index[("mean", ())], lane_kw(0),
+                                     mixing=mixings[topo]))
+            metas.append((None, topo, 0, 0, 0.0, 0, 0.0, seed, None, None, None, False))
 
     return SweepProgramSpec(
         lanes=lanes, metas=metas, agg_specs=agg_specs,
@@ -371,14 +401,17 @@ def build_sweep_lanes(grid: SweepGrid) -> SweepProgramSpec:
 def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
           grid: SweepGrid, *, rounds: Optional[int] = None,
           fast_compile: Optional[bool] = None, plan=None,
-          return_campaign: bool = False):
+          return_campaign: bool = False,
+          draws_fn: Optional[Callable[[int, int], RoundDraws]] = None):
     """Measure a whole §5.5 phase diagram as **one** campaign.
 
-    Every (regime × attacker count × scale × seed) cell is a lane:
-    verification differences ride in the lanes' ``p_check`` / ``tolerance``
-    (``p_check = 0`` disables audits), aggregator differences in their
-    ``agg_id`` over the round's aggregator set, and the honest baseline
-    rides along as extra ``count = 0`` lanes, one per seed.  Lane building
+    Every (regime × topology × attacker count × scale × seed) cell is a
+    lane: verification differences ride in the lanes' ``p_check`` /
+    ``tolerance`` (``p_check = 0`` disables audits), aggregator differences
+    in their ``agg_id`` over the round's aggregator set, topology
+    differences in their mixing matrix (``grid.topologies`` non-empty: every
+    lane then runs the decentralized round), and the honest baseline rides
+    along as extra ``count = 0`` lanes, one per (topology, seed).  Lane building
     lives in :func:`build_sweep_lanes`.  Each result lane reproduces the
     single-point :func:`simulate_derailment` run for the same parameters.
 
@@ -390,6 +423,9 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
     :func:`build_sweep_lanes` (the cells in ``results`` order, then the
     baselines); without it the campaign keeps no lane's params or
     optimizer state past the lane's end (``keep_params=False``).
+    ``draws_fn(j, rnd)`` hands lane j its round's draws
+    (``swarm.run_campaign``'s), so that two sweeps on different devices, or
+    against the reference, consume the same numbers.
     """
     if plan is not None:
         raise NotImplementedError("a MeshPlan placement is not ported yet "
@@ -398,7 +434,6 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
     t0 = time.perf_counter()
     spec = build_sweep_lanes(grid)
     init_loss = _eval(eval_fn, init_params)
-    n_honest = spec.n_honest
     device = next(iter(init_params.values())).device
 
     state, recs, final = run_campaign(
@@ -406,34 +441,42 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
         stack_lanes(spec.lanes, device=device), rounds=rounds,
         aggregator=spec.aggregator, agg_kwargs=spec.agg_kwargs,
         verify=spec.verify, eval_fn=eval_fn, fast_compile=bool(fast_compile),
-        keep_params=return_campaign)
+        keep_params=return_campaign, draws_fn=draws_fn)
     campaign = (state, recs, final) if return_campaign else None
     slashed = state.slashed.cpu().numpy()
     del state, recs
-    final = final.cpu().numpy()
+    results = sweep_results(spec, final.cpu().numpy(), slashed, init_loss)
+    result = SweepResult(grid=grid, results=results, n_programs=1,
+                         n_runs=len(spec.lanes), wall_s=time.perf_counter() - t0)
+    return (result, campaign) if return_campaign else result
 
-    baselines: Dict[int, float] = {}
+
+def sweep_results(spec: SweepProgramSpec, final: np.ndarray, slashed: np.ndarray,
+                  init_loss: float) -> List[DerailmentResult]:
+    """The cells of a sweep from its lanes' outcomes: ``final`` the (L,)
+    final losses and ``slashed`` the (L, N) slashed masks, lane j the j-th
+    of ``spec``; each cell against its (topology, seed)'s baseline lane."""
+    n_honest = spec.n_honest
+    baselines: Dict[Tuple[str, int], float] = {}
     cells = []
-    for j, (reg, _, _, _, _, count, scale, seed, *_) in enumerate(spec.metas):
+    for j, (reg, topo, _, _, _, count, scale, seed, *_) in enumerate(spec.metas):
         if reg is None:
-            baselines[seed] = float(final[j])
+            baselines[topo, seed] = float(final[j])
         else:
-            cells.append((j, reg, count, seed))
-    results = [DerailmentResult(
+            cells.append((j, reg, topo, count, seed))
+    return [DerailmentResult(
         attacker_fraction=count / (n_honest + count) if count else 0.0,
         aggregator=reg.aggregator,
         verified=reg.verification is not None,
         final_loss=float(final[j]),
-        baseline_loss=baselines[seed],
+        baseline_loss=baselines[topo, seed],
         attackers_slashed=int(slashed[j, n_honest:n_honest + count].sum()),
         n_attackers=count,
         init_loss=init_loss,
         seed=seed,
         regime=reg.name,
-    ) for j, reg, count, seed in cells]
-    result = SweepResult(grid=grid, results=results, n_programs=1,
-                         n_runs=len(spec.lanes), wall_s=time.perf_counter() - t0)
-    return (result, campaign) if return_campaign else result
+        topology=topo,
+    ) for j, reg, topo, count, seed in cells]
 
 
 # -- economics -------------------------------------------------------------------

@@ -3,17 +3,17 @@
 
 A :class:`Scenario` is a factory: it scales to any node count and builds
 the ``(nodes, SwarmConfig)`` pair or a ready-to-run swarm on either engine.
-The eight scenarios of the centralized synchronous round are registered
-here; the reference's other ten need a later axis of the round, and
-:func:`get_scenario` of one raises ``NotImplementedError`` naming its
-ROADMAP queue 1 item (``WAITING_SCENARIOS``).  :func:`scenario_campaign`
+The eight scenarios of the centralized synchronous round and the three of
+the decentralized round are registered here; the reference's other seven
+need a later axis of the round, and :func:`get_scenario` of one raises
+``NotImplementedError`` naming its ROADMAP queue 1 item
+(``WAITING_SCENARIOS``).  :func:`scenario_campaign`
 runs one scenario across seeds as one campaign (``swarm.run_campaign``).
 
 :class:`SweepGrid` names the §5.5 derailment phase-diagram grids that
 ``core.derailment.sweep`` consumes.  Every grid of the reference is
-registered, as data; a grid that sets a field of a later axis (topologies
-8, staleness bounds 9, custody 7, economy 10) raises that item when it is
-swept.  The reference's serving grids wait for item 12.
+registered, as data; a grid that sets a field of a later axis (staleness
+bounds 9, custody 7, economy 10) raises that item when it is swept.  The reference's serving grids wait for item 12.
 """
 from __future__ import annotations
 
@@ -66,7 +66,6 @@ SCENARIOS: Dict[str, Scenario] = {}
 #: the reference's scenarios that need a later axis of the round -> the
 #: ROADMAP queue 1 item each waits for
 WAITING_SCENARIOS: Dict[str, int] = {
-    "gossip_ring_honest": 8, "byzantine_neighborhood": 8, "partitioned_swarm": 8,
     "custody_leech": 7, "custody_churn_collapse": 7,
     "straggler_majority": 9, "stale_poisoning": 9, "async_churn": 9,
     "economy_rational": 10, "economy_sybil_adaptive": 10,
@@ -218,6 +217,43 @@ register_scenario(Scenario(
         seed=seed),
 ))
 
+register_scenario(Scenario(
+    name="gossip_ring_honest",
+    description=("Fully decentralized honest swarm (§3.2): per-node model "
+                 "replicas on a ring, each node mean-aggregates its "
+                 "neighborhood and replicas gossip-mix once per round.  "
+                 "Convergence and consensus_error are gated by the ring's "
+                 "O(1/n²) spectral gap — the no-central-aggregator control."),
+    make_nodes=lambda n: _mixed_nodes(n, 0, "zero", 0.0),
+    make_config=lambda seed: SwarmConfig(aggregator="mean", topology="ring",
+                                         seed=seed),
+))
+
+register_scenario(Scenario(
+    name="byzantine_neighborhood",
+    description=("Decentralized robustness (§3.3 x §3.2): a 25% sign-flip "
+                 "minority attacks a degree-4 random-regular gossip graph; "
+                 "every node CenteredClips its *own* neighborhood, so an "
+                 "attacker can exceed the breakdown point locally even "
+                 "while globally below it."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, n // 4), "sign_flip", 10.0),
+    make_config=lambda seed: SwarmConfig(aggregator="centered_clip",
+                                         topology="random_regular",
+                                         seed=seed),
+))
+
+register_scenario(Scenario(
+    name="partitioned_swarm",
+    description=("Near-partition stress (§5.5): two ring clusters joined "
+                 "by a single bridge edge (near-zero spectral gap).  "
+                 "Honest swarm; consensus leaks across the bridge one edge "
+                 "per round, so consensus_error decays at the bridge rate, "
+                 "not the cluster rate."),
+    make_nodes=lambda n: _mixed_nodes(n, 0, "zero", 0.0),
+    make_config=lambda seed: SwarmConfig(aggregator="mean",
+                                         topology="clustered", seed=seed),
+))
+
 
 # -- campaigns over scenarios ----------------------------------------------------
 def scenario_campaign(name: str, loss_fn, params, optimizer, data_fn, *,
@@ -268,9 +304,14 @@ class SweepGrid:
     scales × seeds) per regime that ``derailment.sweep`` runs as the lanes
     of one campaign, with an honest baseline lane per seed.
 
+    A non-empty ``topologies`` adds the decentralized axis: every cell is
+    crossed with each named ``core.topology`` entry and runs the
+    decentralized round (per-node replicas, neighbourhood aggregation,
+    gossip mixing; the mixing matrix rides on the lane), with honest
+    baselines per (topology, seed).  Empty means centralized.
+
     Every field of the reference's grid is here, so every grid registers
     as data.  The fields of the later axes, each the reference's meaning:
-    ``topologies`` (the decentralized round; ROADMAP queue 1, item 8),
     ``redundancies`` / ``coalition_fractions`` with ``num_shards``,
     ``custody_max_fraction`` and ``custody_leave_fraction`` (the custody
     axis; item 7), ``staleness_bounds`` (bounded-staleness rounds; item 9)

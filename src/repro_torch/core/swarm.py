@@ -34,9 +34,26 @@ lanes, each a scanned run from the same initial params on the same
 per-(node, round) batches), routing each lane to its own aggregator by
 ``agg_id`` when the round is built over an aggregator set.
 
+**Decentralized mode** (paper §3.2 meets §5.5): a round built with
+``decentralized=True`` (``SwarmConfig.topology`` on the engine,
+``LaneParams.mixing`` on the functional core) has no central aggregator.
+``SwarmState.params`` carries a leading node axis, one replica per node,
+and each round every node (1) takes the gradient of its own replica, (2)
+robust-aggregates the submissions of its neighbourhood (the nonzero
+entries of its row of the mixing matrix, and kept), (3) applies that to
+its replica with its own optimizer state, and (4) the replicas
+gossip-mix, ``params ← W @ params`` in float32.
+``RoundRecord.consensus_err`` is the largest deviation of an active
+replica from the active replicas' mean after mixing.  ``mixing`` may be a
+(T, N, N) stack (``core.topology``'s time-varying or churn-coupled
+graphs), read at ``round % T`` (``"cycle"``) or ``min(round, T - 1)``
+(``"clamp"``).  On the card each node's aggregation takes the fused
+aggregator's kernels with that node's mask; the wire stays the decoded
+round trip on both devices.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): custody lanes (7), decentralized topologies (8), bounded
-staleness (9), the economy lane (10) and a ``MeshPlan`` placement (13).
+queue 1 item): custody lanes (7), bounded staleness (9), the economy lane
+(10) and a ``MeshPlan`` placement (13).
 """
 from __future__ import annotations
 
@@ -49,7 +66,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, compression
+from repro_torch.core import aggregation, compression, gossip, topology
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.verification import VerificationConfig, audit_flat
 from repro_torch.kernels.masked_agg import ops as masked_agg_ops
@@ -95,12 +112,22 @@ class SwarmConfig:
     compression: Optional[str] = None    # None|"qsgd"|"topk"|"powersgd"
     compression_kwargs: Dict = field(default_factory=dict)
     seed: int = 0
-    # the fields below mirror the reference's; non-default values wait for
-    # their slices
+    #: named communication topology (``core.topology`` registry): setting
+    #: one switches the batched engine to the decentralized round (per-node
+    #: replicas, neighbourhood aggregation, gossip mixing).  None =
+    #: centralized.
     topology: Optional[str] = None
     topology_kwargs: Dict = field(default_factory=dict)
+    #: seed of the graph draw (random_regular), apart from ``seed`` so that
+    #: run seeds vary the noise and never the graph
     topology_seed: int = 0
+    #: couple the mixing matrix to the roster's join/leave schedule
+    #: (``topology.churn_coupled_mixing``): departed or not-yet-joined
+    #: nodes become isolated self-loops and their replicas freeze.  False
+    #: keeps the graph static: every replica mixes on every round.
     churn_coupled: bool = False
+    # the fields below mirror the reference's; non-default values wait for
+    # their slices
     custody: Optional[Any] = None
     #: fused hot path (kernels.masked_agg + kernels.qsgd_decode): None =
     #: auto (see make_round_fn), True = force, False = never.
@@ -109,9 +136,7 @@ class SwarmConfig:
     economy: Optional[Any] = None
 
     def __post_init__(self):
-        waiting = [("topology", self.topology is not None, 8),
-                   ("churn_coupled", self.churn_coupled, 8),
-                   ("custody", self.custody is not None, 7),
+        waiting = [("custody", self.custody is not None, 7),
                    ("staleness_bound", self.staleness_bound != 0, 9),
                    ("economy", self.economy is not None, 10)]
         for name, set_, item in waiting:
@@ -178,10 +203,13 @@ class LaneParams(NamedTuple):
     and ``agg_ids`` its host copy, which routing reads so that it never
     reads the device.  :meth:`lane` slices run k back out.
 
-    ``mixing`` (item 8), ``custody`` / ``coalition`` (item 7), ``delays``
-    (item 9) and ``econ`` (item 10) are the reference's later axes: a lane
-    carrying one raises ``NotImplementedError`` naming its ROADMAP queue 1
-    item wherever the engine meets it."""
+    ``mixing`` is the decentralized round's doubly-stochastic mixing
+    matrix, an (N, N) or (T, N, N) float32 tensor ((L, ...) stacked);
+    None means the round is centralized, and every lane of a campaign
+    must agree.  ``custody`` / ``coalition`` (item 7), ``delays`` (item 9)
+    and ``econ`` (item 10) are the reference's later axes: a lane carrying
+    one raises ``NotImplementedError`` naming its ROADMAP queue 1 item
+    wherever the engine meets it."""
     codes: torch.Tensor       # (N,) int32 behaviour codes (BEHAVIOUR_CODES)
     scales: torch.Tensor      # (N,) f32 byzantine scales
     speeds: torch.Tensor      # (N,) f32 capacity -> minted shares per kept round
@@ -215,12 +243,12 @@ class LaneParams(NamedTuple):
             p_check=self.p_check[k], tolerance=self.tolerance[k],
             numeric_noise=self.numeric_noise[k],
             agg_kwargs={name: v[k] for name, v in self.agg_kwargs.items()},
-            agg_id=self.agg_ids[k])
+            agg_id=self.agg_ids[k],
+            mixing=None if self.mixing is None else self.mixing[k])
 
 
 #: the reference's later lane axes -> the ROADMAP queue 1 item each waits for
-_LATER_AXES = (("mixing", 8), ("custody", 7), ("coalition", 7), ("delays", 9),
-               ("econ", 10))
+_LATER_AXES = (("custody", 7), ("coalition", 7), ("delays", 9), ("econ", 10))
 
 
 def _refuse_later_axes(lane: LaneParams) -> None:
@@ -231,7 +259,9 @@ def _refuse_later_axes(lane: LaneParams) -> None:
 
 
 class SwarmState(NamedTuple):
-    """Everything that evolves across rounds."""
+    """Everything that evolves across rounds.  In a decentralized round
+    every leaf of ``params`` and ``opt_state`` has a leading node axis:
+    one replica, and one optimizer state, per node."""
     params: Dict[str, torch.Tensor]
     opt_state: Any
     slashed: torch.Tensor     # (N,) bool — caught by an audit in a prior round
@@ -244,7 +274,7 @@ class RoundRecord(NamedTuple):
     n_byzantine: torch.Tensor
     caught: torch.Tensor      # (N,) bool — slashed in *this* round
     keep: torch.Tensor        # (N,) bool — active & not caught (minted this round)
-    agg_norm: torch.Tensor
+    agg_norm: torch.Tensor        # decentralized: the mean of the per-node norms
     consensus_err: torch.Tensor   # 0 in centralized rounds
     coverage: torch.Tensor        # 1.0 without a custody lane
     staleness: torch.Tensor       # 0 in synchronous rounds
@@ -253,12 +283,29 @@ class RoundRecord(NamedTuple):
 def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
                    device: torch.device, *,
                    agg_kwargs: Optional[Dict] = None) -> LaneParams:
-    """The single-run :class:`LaneParams` of a roster and config."""
+    """The single-run :class:`LaneParams` of a roster and config.
+    ``cfg.topology`` resolves to the named Metropolis mixing matrix at this
+    roster size, drawn with ``cfg.topology_seed`` (not the run seed: reruns
+    across seeds keep the graph).  ``cfg.churn_coupled`` expands it to the
+    (T, N, N) schedule-coupled stack, T spanning the last membership event
+    (read with ``mixing_schedule="clamp"``, which :class:`Swarm` wires)."""
     v = cfg.verification
 
     def t(vals, dtype):
         return torch.tensor(vals, dtype=dtype, device=device)
 
+    mixing = None
+    if cfg.topology is not None:
+        w = topology.mixing_matrix(cfg.topology, len(nodes), seed=cfg.topology_seed,
+                                   **cfg.topology_kwargs)
+        if cfg.churn_coupled:
+            joins = np.asarray([n.join_round for n in nodes])
+            leaves = np.asarray([_FAR if n.leave_round is None else n.leave_round
+                                 for n in nodes])
+            events = [int(x) for x in (*joins, *leaves) if 0 < x < _FAR]
+            w = topology.churn_coupled_mixing(
+                w, joins, leaves, rounds=(max(events) + 1) if events else 1)
+        mixing = torch.from_numpy(w.astype(np.float32)).to(device)
     return LaneParams(
         codes=t([n.behaviour_code for n in nodes], torch.int32),
         scales=t([n.byzantine_scale for n in nodes], torch.float32),
@@ -271,6 +318,7 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
         tolerance=float(v.tolerance) if v else 1.0,
         numeric_noise=float(v.numeric_noise) if v else 0.0,
         agg_kwargs=dict(agg_kwargs or {}),
+        mixing=mixing,
     )
 
 
@@ -297,7 +345,9 @@ def stack_trees(trees: Sequence[Any]):
 
 
 def lane_slice(tree, k: int):
-    """Lane ``k`` of a campaign output (every leaf indexed by ``k``)."""
+    """Lane ``k`` of a campaign output, or node ``k``'s replica (or
+    optimizer state) of a decentralized state: every leaf indexed by ``k``
+    (views, no copy)."""
     return tree_map(lambda x: x[k], tree)
 
 
@@ -308,7 +358,9 @@ def stack_lanes(lanes: Sequence[LaneParams],
     L axis on ``device`` (default: the first lane's), ``seed`` and the audit
     fields become per-lane host tuples, each ``agg_kwargs`` entry an (L,)
     tensor, and ``agg_id`` an (L,) int32 tensor beside its host copy
-    ``agg_ids``.  All lanes must share N and the ``agg_kwargs`` keys."""
+    ``agg_ids``.  All lanes must share N and the ``agg_kwargs`` keys, and
+    agree on ``mixing``: all None (centralized) or all same-shaped
+    matrices (decentralized)."""
     lanes = list(lanes)
     if not lanes:
         raise ValueError("stack_lanes needs at least one lane")
@@ -319,6 +371,10 @@ def stack_lanes(lanes: Sequence[LaneParams],
     keys = set(lanes[0].agg_kwargs)
     if any(set(lane.agg_kwargs) != keys for lane in lanes):
         raise ValueError("every lane of a campaign needs the same agg_kwargs keys")
+    decentralized = lanes[0].mixing is not None
+    if any((lane.mixing is not None) != decentralized for lane in lanes):
+        raise ValueError("every lane of a campaign must agree on mixing "
+                         "(all None, or all mixing matrices)")
     first = lanes[0].codes
     dev = torch.device(device) if device is not None else (
         first.device if isinstance(first, torch.Tensor) else torch.device("cpu"))
@@ -340,7 +396,9 @@ def stack_lanes(lanes: Sequence[LaneParams],
         agg_kwargs={k: stacked(lane.agg_kwargs[k] for lane in lanes)
                     for k in sorted(keys)},
         agg_id=torch.tensor(agg_ids, dtype=torch.int32, device=dev),
-        agg_ids=agg_ids)
+        agg_ids=agg_ids,
+        mixing=(stacked(lane.mixing for lane in lanes).float() if decentralized
+                else None))
 
 
 def init_state(params, optimizer, n_nodes: int, *, staleness_bound: int = 0,
@@ -358,6 +416,33 @@ def init_state(params, optimizer, n_nodes: int, *, staleness_bound: int = 0,
     return SwarmState(params=params, opt_state=optimizer.init(params),
                       slashed=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
                       contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev))
+
+
+def init_decentralized_state(params, optimizer, n_nodes: int, *,
+                             staleness_bound: int = 0) -> SwarmState:
+    """Per-node replica state: every node starts from the same ``params``
+    with its own optimizer state, each leaf repeated along a new leading
+    node axis (the replicas are equal, so each node's ``optimizer.init`` is
+    the first node's).  The async ring (item 9) is not ported yet."""
+    if staleness_bound:
+        raise NotImplementedError("bounded staleness is not ported yet "
+                                  "(ROADMAP queue 1, item 9)")
+
+    def repeat(x):
+        return x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.dim())
+
+    dev = next(iter(params.values())).device
+    return SwarmState(
+        params={k: repeat(v) for k, v in params.items()},
+        opt_state=tree_map(repeat, optimizer.init(params)),
+        slashed=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
+        contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev))
+
+
+def consensus_params(params):
+    """Collapse per-node replicas to the swarm-mean (consensus) params: the
+    float32 mean over the node axis, cast back to each leaf's dtype."""
+    return {k: torch.mean(v.float(), dim=0).to(v.dtype) for k, v in params.items()}
 
 
 def _accepted_kwargs(name: str) -> frozenset:
@@ -424,7 +509,9 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
                   aggregator, agg_kwargs: Optional[Dict] = None,
                   compression_kind: Optional[str] = None,
                   compression_kwargs: Optional[Dict] = None,
-                  verify: bool = False, fused: Optional[bool] = None) -> Callable:
+                  verify: bool = False, decentralized: bool = False,
+                  mixing_schedule: str = "cycle",
+                  fused: Optional[bool] = None) -> Callable:
     """Build the round: ``round_fn(lane, state, rnd, batches, draws=None)
     -> (state, RoundRecord)``, ``batches`` one batch per node.
 
@@ -438,13 +525,27 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     ``agg_id``; the port evaluates only the lane's own (``agg_id`` is a host
     int), the same value without the set's work done L times over.
 
+    ``decentralized=True`` builds the round without a central aggregator
+    (the module docstring): ``state.params`` / ``opt_state`` carry a leading
+    node axis (:func:`init_decentralized_state`) and ``lane.mixing`` is the
+    graph.  Activity gates contribution (keep) only: inactive or slashed
+    replicas go on updating from their neighbourhood and mixing, as in the
+    reference, so a fully-connected graph reproduces the centralized round
+    even under churn; a churn-coupled stack freezes leavers instead.
+    ``mixing_schedule`` reads a (T, N, N) stack at ``round % T``
+    (``"cycle"``) or ``min(round, T - 1)`` (``"clamp"``).
+
     ``fused`` selects the hot path: aggregators run their fused twins
     (``kernels.masked_agg``) and a qsgd wire keeps the int8 payload live
     into aggregation instead of a decoded float32 stack.  ``None`` resolves
     it per aggregator with :func:`fused_choice`; ``True`` forces it
     (raising on unsupported combinations); ``False`` forces the reference
-    path.  The choice is exposed as ``round_fn.fused_by_agg`` (one bool per
-    aggregator of the set) and ``round_fn.fused`` (every one fused).
+    path.  A decentralized round keeps the decoded wire on both devices;
+    on the CPU it is never fused, as in the reference (``fused=True``
+    raises its ``ValueError``), and on the card each node's neighbourhood
+    takes the fused twin where the aggregator has one.  The choice is
+    exposed as ``round_fn.fused_by_agg`` (one bool per aggregator of the
+    set) and ``round_fn.fused`` (every one fused).
     """
     if isinstance(aggregator, str):
         agg_specs = [(aggregator, dict(agg_kwargs or {}))]
@@ -458,14 +559,29 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     if compression_kind not in compression.WIRE_CODECS:
         raise ValueError(f"unknown wire codec: {compression_kind!r} "
                          f"(known: {compression.WIRE_CODECS})")
+    if mixing_schedule not in ("cycle", "clamp"):
+        raise ValueError(f"unknown mixing_schedule: {mixing_schedule!r} "
+                         "(known: 'cycle', 'clamp')")
     ckw = dict(compression_kwargs or {})
     layout = layout_of(params_template)
     d_total = flat_size(layout)
     stack_bytes = n_nodes * d_total * 4
-    fused_by_agg = fused_choice(
-        [name for name, _ in agg_specs], compression_kind, ckw.get("levels", 16),
-        on_card=next(iter(params_template.values())).is_cuda,
-        stack_bytes=stack_bytes, fused=fused)
+    names = [name for name, _ in agg_specs]
+    on_card = next(iter(params_template.values())).is_cuda
+    if decentralized and not on_card:
+        if fused:
+            raise ValueError(
+                "fused=True unsupported here: needs a centralized round, "
+                f"aggregators within {sorted(masked_agg_ops.FUSED_MASKED_AGGREGATORS)} "
+                f"(got {names}), and an uncompressed or int8-codeable qsgd wire "
+                f"(got {compression_kind!r}, levels={ckw.get('levels', 16)})")
+        fused_by_agg = (False,) * len(names)
+    else:
+        # a decentralized round aggregates the decoded stack: its wire never
+        # limits the fused twins
+        fused_by_agg = fused_choice(
+            names, None if decentralized else compression_kind, ckw.get("levels", 16),
+            on_card=on_card, stack_bytes=stack_bytes, fused=fused)
     agg_fns = [((masked_agg_ops.get_fused_aggregator if f
                  else aggregation.get_masked_aggregator)(name, **kw),
                 _accepted_kwargs(name) - set(kw), f)
@@ -480,6 +596,40 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
 
     draw = compression.wire_draw(compression_kind, d_total, **ckw)
 
+    def mixing_at(lane: LaneParams, rnd: int) -> torch.Tensor:
+        if lane.mixing is None:
+            raise ValueError("a decentralized round needs LaneParams.mixing "
+                             "(SwarmConfig.topology, or a mixing matrix on the lane)")
+        w = lane.mixing.float()
+        if w.dim() == 3:                 # time-varying / churn-coupled stack
+            t_max = w.shape[0]
+            w = w[min(rnd, t_max - 1) if mixing_schedule == "clamp" else rnd % t_max]
+        return w
+
+    def update_nodes(lane, state, w, submitted, keep):
+        """5 + 6 of a decentralized round, node by node: node i aggregates
+        the kept submissions of its neighbourhood (the Metropolis W has
+        self-loops, so its own is among them) and updates its replica with
+        its own optimizer state.  One node's aggregate is alive at a time;
+        the new replicas are written as the rows of the float32 stack that
+        the gossip mix reads.  Returns ``(stack, opt_state, agg_norm)``."""
+        per_keep = (w > 0) & keep[None, :]                  # (N, N)
+        node_any = torch.any(per_keep, dim=1).tolist()
+        dev = keep.device
+        flat = torch.empty((n_nodes, d_total), dtype=torch.float32, device=dev)
+        new_opt = tree_map(torch.empty_like, state.opt_state)
+        norms = torch.zeros(n_nodes, dtype=torch.float32, device=dev)
+        for i in range(n_nodes):
+            p_i, o_i = lane_slice(state.params, i), lane_slice(state.opt_state, i)
+            if node_any[i]:
+                agg = aggregate(lane, submitted, per_keep[i])
+                norms[i] = torch.linalg.vector_norm(agg)
+                p_i, o_i = optimizer.update(unflatten(agg, layout), o_i, p_i)
+                del agg
+            flatten_into(flat[i], p_i)
+            tree_map(lambda o, x: o[i].copy_(x), new_opt, o_i)
+        return flat, new_opt, torch.mean(norms)
+
     def round_fn(lane: LaneParams, state: SwarmState, rnd: int, batches,
                  draws: Optional[RoundDraws] = None):
         dev = state.slashed.device
@@ -489,12 +639,15 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         nact = torch.sum(maskf)
         rr = RoundRandom(lane.seed, rnd, dev, draws)
         codes = lane.codes.tolist()
-        fused_qsgd = compression_kind == "qsgd" and agg_fns[int(lane.agg_id)][2]
+        fused_qsgd = (compression_kind == "qsgd" and not decentralized
+                      and agg_fns[int(lane.agg_id)][2])
 
-        # 1. per-node gradients -> rows of one (N, D) float32 stack
+        # 1. per-node gradients -> rows of one (N, D) float32 stack; each
+        # node of a decentralized round at its own replica
         gf = torch.empty((n, d_total), dtype=torch.float32, device=dev)
         for i in range(n):
-            flatten_into(gf[i], _node_gradient(loss_fn, state.params, batches[i]))
+            params_i = lane_slice(state.params, i) if decentralized else state.params
+            flatten_into(gf[i], _node_gradient(loss_fn, params_i, batches[i]))
 
         # 2. corruption
         honest_mean = None
@@ -550,19 +703,37 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         caught = audited & ~passes
         keep = active & ~caught
 
-        # 5. masked robust aggregation
-        agg = aggregate(lane, submitted, keep)
-        del submitted
-        any_keep = torch.any(keep)
-        agg = torch.where(any_keep, agg, torch.zeros_like(agg))
-
-        # 6. the optimizer update
-        if bool(any_keep):
-            new_params, new_opt = optimizer.update(unflatten(agg, layout),
-                                                   state.opt_state, state.params)
-        else:
-            new_params, new_opt = state.params, state.opt_state
         zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if decentralized:
+            # 5 + 6 node by node, then the gossip mix of the replicas in
+            # float32 (momentum stays local, as in DSGD)
+            w = mixing_at(lane, rnd)
+            flat, new_opt, agg_norm = update_nodes(lane, state, w, submitted, keep)
+            del submitted
+            mixed = gossip.gossip_round(flat, w)
+            del flat
+            # consensus over the active replicas only: a churn-coupled
+            # leaver's replica freezes (its row e_i) and would otherwise
+            # dominate the max
+            consensus_err = gossip.consensus_error(mixed, active)
+            # the replicas in their dtypes, copied out of the stack so that
+            # it can be freed
+            new_params = {k: v.contiguous() for k, v in unflatten(mixed, layout).items()}
+            del mixed
+        else:
+            # 5. masked robust aggregation
+            agg = aggregate(lane, submitted, keep)
+            del submitted
+            any_keep = torch.any(keep)
+            agg = torch.where(any_keep, agg, torch.zeros_like(agg))
+
+            # 6. the optimizer update
+            if bool(any_keep):
+                new_params, new_opt = optimizer.update(unflatten(agg, layout),
+                                                       state.opt_state, state.params)
+            else:
+                new_params, new_opt = state.params, state.opt_state
+            agg_norm, consensus_err = torch.linalg.vector_norm(agg), zero
         new_state = SwarmState(
             params=new_params, opt_state=new_opt,
             slashed=state.slashed | caught,
@@ -570,8 +741,8 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         rec = RoundRecord(
             n_active=torch.sum(active).to(torch.int32),
             n_byzantine=torch.sum(active & (lane.codes > 0)).to(torch.int32),
-            caught=caught, keep=keep, agg_norm=torch.linalg.vector_norm(agg),
-            consensus_err=zero, coverage=zero + 1.0, staleness=zero)
+            caught=caught, keep=keep, agg_norm=agg_norm,
+            consensus_err=consensus_err, coverage=zero + 1.0, staleness=zero)
         return new_state, rec
 
     round_fn.fused_by_agg = fused_by_agg      # resolved choice, inspectable
@@ -652,10 +823,16 @@ def run_campaign(loss_fn: Callable, params0, optimizer, data_fn: Callable,
     is made once, by ``data_fn(node, rnd)`` or ``batched_data_fn(rnd)`` (a
     sequence of N batches), and every lane sees it.  They differ in what
     :class:`LaneParams` carries: roster, seed, audit rate and tolerance,
-    ``agg_id`` and ``agg_kwargs``.  This first cut loops over the lanes on
-    the host, each lane :func:`scan_rounds` from a fresh
-    :func:`init_state`; lane k equals the single-run :class:`Swarm` of the
-    same roster and config bit for bit.  ``draws_fn(k, rnd)`` hands lane k
+    ``agg_id`` and ``agg_kwargs``, and in a decentralized campaign the
+    mixing matrix (so topology is a lane axis).  Decentralized mode is read
+    from ``lanes.mixing``: each lane then starts from
+    :func:`init_decentralized_state`, a 3-D stack is read at ``round % T``
+    (a time-varying schedule; a churn-coupled stack is :class:`Swarm`'s,
+    which reads it clamped), and ``eval_fn`` sees the lane's consensus
+    (node-mean) params.  This
+    first cut loops over the lanes on the host, each lane
+    :func:`scan_rounds` from a fresh initial state; lane k equals the
+    single-run :class:`Swarm` of the same roster and config bit for bit.  ``draws_fn(k, rnd)`` hands lane k
     its round's draws (the tests pass the reference's).
 
     ``fast_compile`` is the reference's XLA option and a no-op here: there
@@ -693,7 +870,8 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
                           keep_params: bool = True) -> Callable:
     """Build (without running) the campaign that :func:`run_campaign`
     runs: ``fn(lanes) -> (SwarmState, RoundRecord, final losses)``.
-    ``lanes`` is read for its structure only (N, the later axes).  The
+    ``lanes`` is read for its structure only (N, decentralized or not, the
+    later axes).  The
     resolved fused choice is ``fn.fused`` and ``fn.fused_by_agg``.
 
     Each lane's outputs are copied into preallocated (L, ...) tensors as
@@ -706,10 +884,18 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
         raise ValueError("run_campaign takes a stacked campaign (stack_lanes)")
     _refuse_later_axes(lanes)
     n = int(lanes.codes.shape[-1])
+    decentralized = lanes.mixing is not None
     round_fn = make_round_fn(
         loss_fn, optimizer, params0, n, aggregator=aggregator,
         agg_kwargs=agg_kwargs, compression_kind=compression_kind,
-        compression_kwargs=compression_kwargs, verify=verify, fused=fused)
+        compression_kwargs=compression_kwargs, verify=verify,
+        decentralized=decentralized, fused=fused)
+    init = init_decentralized_state if decentralized else init_state
+    lane_eval = eval_fn
+    if decentralized and eval_fn is not None:
+        def lane_eval(params):
+            # decentralized lanes evaluate the consensus (mean) replica
+            return eval_fn(consensus_params(params))
 
     def program(lanes: LaneParams):
         batches: Dict[int, list] = {}
@@ -722,8 +908,8 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
 
         out = None
         for k in range(lanes.n_lanes):
-            run = scan_rounds(round_fn, lanes.lane(k), init_state(params0, optimizer, n),
-                              rounds, batch_fn, eval_fn,
+            run = scan_rounds(round_fn, lanes.lane(k), init(params0, optimizer, n),
+                              rounds, batch_fn, lane_eval,
                               draws_fn=None if draws_fn is None
                               else functools.partial(draws_fn, k))
             if not keep_params:
@@ -821,6 +1007,8 @@ class _SwarmBase:
         self.slashed.add(node.node_id)
 
     def eval_params(self):
+        """The params an ``eval_fn`` should see: the decentralized engine
+        returns the consensus (node-mean) replica."""
         return self.params
 
     def run(self, rounds: int, eval_fn: Optional[Callable] = None,
@@ -844,6 +1032,11 @@ class Swarm(_SwarmBase):
     occupy a row of the stack (their gradient is computed and then masked),
     as in the reference.  It also carries the device mint counter
     (``contrib``) across steps, as a lane of :func:`run_campaign` does.
+
+    ``cfg.topology`` switches it to the decentralized round: ``params`` and
+    ``opt_state`` become per-node replicas and optimizer states (leading N
+    axis), history rows carry a nonzero ``consensus_error``, and
+    :meth:`eval_params` returns the consensus (node-mean) replica.
     """
 
     def __init__(self, loss_fn: Callable, params, optimizer,
@@ -860,12 +1053,20 @@ class Swarm(_SwarmBase):
         #: the device mint counter, carried across steps as a scanned run
         #: carries it (speed-weighted kept rounds; frozen once slashed)
         self.contrib = torch.zeros(n, dtype=torch.float32, device=self.device)
+        self._decentralized = cfg.topology is not None
         self._core = make_round_fn(
             loss_fn, optimizer, self.params, n,
             aggregator=cfg.aggregator, agg_kwargs=cfg.agg_kwargs,
             compression_kind=cfg.compression,
             compression_kwargs=cfg.compression_kwargs,
-            verify=cfg.verification is not None, fused=cfg.fused)
+            verify=cfg.verification is not None,
+            decentralized=self._decentralized,
+            mixing_schedule="clamp" if cfg.churn_coupled else "cycle",
+            fused=cfg.fused)
+        if self._decentralized:
+            # per-node replicas and optimizer states from round 0
+            init = init_decentralized_state(self.params, optimizer, n)
+            self.params, self.opt_state = init.params, init.opt_state
 
     @property
     def fused(self) -> bool:
@@ -897,6 +1098,9 @@ class Swarm(_SwarmBase):
         self.history.append(row)
         return row
 
+    def eval_params(self):
+        return consensus_params(self.params) if self._decentralized else self.params
+
 
 class SequentialSwarm(_SwarmBase):
     """The per-node engine: the readable twin of the reference's
@@ -910,12 +1114,17 @@ class SequentialSwarm(_SwarmBase):
     compacted (k, D) stack of the survivors.  The draws are the batched
     engine's: the same ``(seed, purpose, round, node)`` generators, or the
     caller's ``draws``.  Bounded staleness and the other axes that
-    ``SwarmConfig`` refuses wait for their items there.
+    ``SwarmConfig`` refuses wait for their items there.  It is
+    centralized-only, as the reference's: a topology raises ``ValueError``.
     """
 
     def __init__(self, loss_fn: Callable, params, optimizer,
                  nodes: List[NodeSpec], cfg: SwarmConfig,
                  data_fn: Callable[[int, int], dict]):
+        if cfg.topology is not None:
+            raise ValueError("the sequential reference engine is "
+                             "centralized-only; decentralized topologies "
+                             "need engine='batched'")
         super().__init__(loss_fn, params, optimizer, nodes, cfg, data_fn)
         if cfg.compression not in compression.WIRE_CODECS:
             raise ValueError(f"unknown wire codec: {cfg.compression!r} "

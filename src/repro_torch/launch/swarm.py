@@ -5,6 +5,8 @@ twin of ``examples/swarm_byzantine_training.py``.
     python -m repro_torch.launch.swarm --full          # 162,417,408 params
     python -m repro_torch.launch.swarm --device cpu --rounds 3
     python -m repro_torch.launch.swarm --full --engine sequential   # per-node engine
+    python -m repro_torch.launch.swarm --full --scenario byzantine_neighborhood \
+        --nodes 10 --rounds 2                          # any registered scenario
 
 The "showcase" roster exercises the five §3 properties and the §4
 incentives at once: 10 heterogeneous nodes (speeds 0.5-3x, two join late,
@@ -14,8 +16,12 @@ a QSGD wire (127 levels, buckets of 512), CenteredClip aggregation
 AdamW at lr 5e-3 on sequences of 128 tokens, a global batch of 2N.  It
 prints the reference's columns and ledger report.  ``--engine`` picks the
 batched round (``Swarm``, the default) or the per-node ``SequentialSwarm``,
-as the reference example's ``--engine`` does.  The reference ends with
-a custody-sharded checkpoint; that waits for the custody slice (ROADMAP
+as the reference example's ``--engine`` does.  ``--scenario`` runs any
+registered scenario instead (``core.scenarios``) at ``--nodes`` nodes,
+the decentralized ones (``gossip_ring_honest``, ``byzantine_neighborhood``,
+``partitioned_swarm``) on per-node replicas, whose consensus (node-mean)
+replica is what the loss column evaluates.  The reference ends with a
+custody-sharded checkpoint; that waits for the custody slice (ROADMAP
 queue 1, item 7) and is skipped here.
 """
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs import ModelConfig, get_config
+from repro_torch.core.scenarios import get_scenario, list_scenarios
 from repro_torch.core.swarm import ENGINES, NodeSpec, SwarmConfig, make_swarm
 from repro_torch.core.verification import VerificationConfig
 from repro_torch.data.pipeline import DataConfig, data_fn_for_swarm, model_batch
@@ -147,13 +154,25 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seed", type=int, default=0, help="weight-init seed")
     ap.add_argument("--engine", default="batched", choices=sorted(ENGINES),
                     help="batched round (default) or the per-node sequential engine")
+    ap.add_argument("--scenario", default="showcase",
+                    choices=["showcase"] + list_scenarios())
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="swarm size of a registered --scenario (default 10); "
+                         "the showcase's roster is fixed")
     args = ap.parse_args(argv)
+    if args.scenario == "showcase" and args.nodes is not None:
+        ap.error("--nodes sizes a registered --scenario; the showcase runs its "
+                 "own 10-node roster")
 
     problem = build_problem(args.full, args.device, args.seed)
     print(f"model: {problem.cfg.name} N={problem.cfg.param_count():,} "
           f"({'full' if args.full else 'reduced'}) on {problem.device}")
-    nodes, cfg = showcase_roster(args.rounds)
-    print(f"scenario: showcase ({len(nodes)} nodes, engine={args.engine})")
+    if args.scenario == "showcase":
+        nodes, cfg = showcase_roster(args.rounds)
+    else:
+        nodes, cfg = get_scenario(args.scenario).build(
+            n_nodes=10 if args.nodes is None else args.nodes)
+    print(f"scenario: {args.scenario} ({len(nodes)} nodes, engine={args.engine})")
     swarm = make_showcase_swarm(problem, nodes, cfg, engine=args.engine)
     t0 = time.time()
     losses = train(swarm, problem, args.rounds)

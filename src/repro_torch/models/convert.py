@@ -59,11 +59,13 @@ def flatten_into(out: torch.Tensor, tree: Mapping[str, torch.Tensor]) -> None:
 
 def unflatten(vec: torch.Tensor, layout: Layout) -> Params:
     """Flat vector -> param dict, each leaf viewed from ``vec`` and cast to
-    its dtype (a copy only where the dtype differs)."""
+    its dtype (a copy only where the dtype differs).  Leading axes of
+    ``vec`` are kept: an (N, D) stack gives leaves of shape (N, *shape)."""
     out, off = {}, 0
+    lead = tuple(vec.shape[:-1])
     for name, shape, dtype in layout:
         size = int(np.prod(shape)) if shape else 1
-        out[name] = vec[off:off + size].reshape(shape).to(dtype)
+        out[name] = vec[..., off:off + size].reshape(lead + tuple(shape)).to(dtype)
         off += size
     return out
 

@@ -368,8 +368,9 @@ def test_unported_campaign_options_raise(problem):
     kw = dict(rounds=2, aggregator="mean")
     with pytest.raises(NotImplementedError, match="item 13"):
         tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, lanes, plan=object(), **kw)
-    for field, item in (("mixing", 8), ("custody", 7), ("coalition", 7), ("delays", 9),
-                        ("econ", 10)):
+    with pytest.raises(ValueError, match="agree on mixing"):
+        tswarm.stack_lanes([single, single._replace(mixing=torch.eye(2))])
+    for field, item in (("custody", 7), ("coalition", 7), ("delays", 9), ("econ", 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tswarm.stack_lanes([single._replace(**{field: torch.ones(2)})])
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -12,7 +12,8 @@
 - each sweep lane equals the port's own ``simulate_derailment``, on both
   engines;
 - ``attack_cost`` and ``no_off_report`` render the reference's strings;
-- the later axes, the unported scenarios and ``plan`` raise their items.
+- the later axes, the unported scenarios and ``plan`` raise their items;
+  the topology grids (item 8, ported) build and sweep.
 """
 import importlib.util
 from pathlib import Path
@@ -32,7 +33,9 @@ from repro_torch.core.verification import VerificationConfig as TVer
 from repro_torch.launch import problems
 
 ROOT = Path(__file__).resolve().parents[1]
-LATER_GRIDS = {"no_off_topology_smoke": 8, "no_off_topology": 8, "no_off_async_smoke": 9,
+# the grids of the reference's later axes -> the ROADMAP queue 1 item each
+# waits for; None: the axis is ported (topologies, item 8) and the grid builds
+LATER_GRIDS = {"no_off_topology_smoke": None, "no_off_topology": None, "no_off_async_smoke": 9,
                "no_off_async": 9, "custody_smoke": 7, "custody_frontier": 7,
                "no_off_economy_smoke": 10, "no_off_economy": 10}
 
@@ -227,8 +230,19 @@ def test_attack_cost_and_report_render_as_the_reference():
 
 @pytest.mark.parametrize("grid", sorted(LATER_GRIDS))
 def test_later_axis_grids_raise_their_item(quadratic, grid):
+    """A grid of a waiting axis raises its item; a topology grid (item 8,
+    ported) builds its lanes, one mixing matrix a topology, and sweeps."""
     tl, tp, td, te, to = quadratic[1]
     g = tscen.get_sweep_grid(grid)
+    if LATER_GRIDS[grid] is None:
+        spec = tder.build_sweep_lanes(g)
+        assert len(spec.lanes) == g.n_lanes
+        assert {m[1] for m in spec.metas} == set(g.topologies)
+        assert all(lane.mixing.shape == (spec.n_total, spec.n_total) for lane in spec.lanes)
+        res = tder.sweep(tl, tp, to, td, te, g, rounds=1)
+        assert {r.topology for r in res.results} == set(g.topologies)
+        assert all(np.isfinite(r.final_loss) for r in res.results)
+        return
     with pytest.raises(NotImplementedError, match=f"item {LATER_GRIDS[grid]}"):
         tder.build_sweep_lanes(g)
     with pytest.raises(NotImplementedError, match=f"item {LATER_GRIDS[grid]}"):
@@ -255,9 +269,9 @@ def test_unported_scenarios_and_options_raise(quadratic):
         res.economy_phase_table("mean")
     with pytest.raises(NotImplementedError, match="item 10"):
         res.economy_adaptive_gap()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         tder.simulate_derailment(tl, tp, to, td, te, n_honest=2, n_attack=1, rounds=1,
-                                 topology="ring")
+                                 staleness_bound=2)
 
 
 def test_tiny_quadratic_problem_is_seeded():

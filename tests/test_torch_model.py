@@ -72,6 +72,22 @@ def test_flat_order_is_jax_leaf_order(problem):
         assert torch.equal(back[k], tparams[k])
 
 
+def test_unflatten_keeps_leading_axes(problem):
+    """An (N, D) stack unflattens to per-node leaves, row i equal to
+    ``unflatten`` of row i."""
+    tparams = problem[5]
+    layout = convert.layout_of(tparams)
+    flat = convert.flatten(tparams)
+    stack = torch.stack([flat, 2 * flat, -flat])
+    batched = convert.unflatten(stack, layout)
+    for i in range(3):
+        row = convert.unflatten(stack[i], layout)
+        for k in tparams:
+            assert batched[k].shape == (3, *tparams[k].shape)
+            assert batched[k].dtype == tparams[k].dtype
+            assert torch.equal(batched[k][i], row[k]), (i, k)
+
+
 def test_param_shapes_and_count_at_full_width():
     cfg = get_config("protocol-125m")
     shapes = ttrans.param_shapes(cfg)

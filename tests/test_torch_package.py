@@ -30,10 +30,12 @@ from repro_torch.kernels.qsgd import ops as qsgd_ops
 from repro_torch.kernels.qsgd_decode import ops as qdec
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.swa_attention import ops as swa
+from repro_torch.launch import derailment_no_off as launch_derailment
 from repro_torch.launch import problems
 from repro_torch.launch import protocol_inference as launch_protocol
 from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import swarm as launch_swarm
+from repro_torch.launch import topology_no_off as launch_topology
 from repro_torch.models import convert
 from repro_torch.models.model import build_model
 from repro_torch.optim.optimizer import SGD
@@ -70,7 +72,7 @@ def test_port_imports_without_jax_or_the_reference():
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 42
+    assert len(mods) >= 47
     assert {"repro_torch.kernels.swa_attention.ops", "repro_torch.core.protocol",
             "repro_torch.core.serving", "repro_torch.core.unextractable",
             "repro_torch.launch.serve", "repro_torch.launch.protocol_inference",
@@ -80,7 +82,9 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.models.hybrid", "repro_torch.kernels.mamba2_scan.ops",
             "repro_torch.kernels.qsgd.ops", "repro_torch.kernels.centered_clip.ops",
             "repro_torch.core.scenarios", "repro_torch.core.derailment",
-            "repro_torch.launch.problems"} <= mods
+            "repro_torch.launch.problems", "repro_torch.core.topology",
+            "repro_torch.core.gossip", "repro_torch.launch.derailment_no_off",
+            "repro_torch.launch.topology_no_off"} <= mods
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -116,7 +120,12 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                  lambda: zamba.concrete_batch(0, 1, 8),
                  lambda: launch_serve.main(["--arch", "zamba2-1.2b"]),
                  lambda: launch_protocol.main(["--arch", "zamba2-1.2b"]),
-                 lambda: problems.tiny_quadratic_problem()):
+                 lambda: problems.tiny_quadratic_problem(),
+                 lambda: problems.small_lm_problem(),
+                 lambda: launch_swarm.main(["--rounds", "1", "--scenario",
+                                            "byzantine_neighborhood"]),
+                 lambda: launch_derailment.main(["--rounds", "1"]),
+                 lambda: launch_topology.main(["--rounds", "1", "--tiny"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -790,3 +799,44 @@ def test_campaign_mixed_set_runs_the_kernels_on_the_card(cuda):
     out = program(lanes)
     assert magg.LAUNCHES == {k: rounds * v for k, v in one_round.items()}
     _assert_lane_is_single_run(cuda, out, 0, loss_fn, data_fn, nodes, cfgs[0], rounds)
+
+
+@pytest.mark.cuda
+def test_decentralized_round_aggregates_with_the_kernels_on_the_card(cuda, monkeypatch):
+    """A decentralized CenteredClip round at D = 4,096 and N = 8 on a
+    random-regular graph (2 sign-flip attackers): each node's neighbourhood
+    aggregate is bit-equal to a lone ``masked_centered_clip_fused`` call
+    with its mask and within 3e-5 of the plain version; a round launches
+    one median and a chain of 3 a node; the mix and consensus are finite."""
+    d, n, rounds = 4096, 8, 2
+    loss_fn, data_fn = _card_quadratic(cuda, d, n, rounds)
+    seen = []
+    fused_cc = magg.FUSED_MASKED_AGGREGATORS["centered_clip"]
+
+    def recording(updates, mask, **kw):
+        out = fused_cc(updates, mask, **kw)
+        seen.append((updates.clone(), mask.clone(), out.clone(), kw))
+        return out
+
+    monkeypatch.setitem(magg.FUSED_MASKED_AGGREGATORS, "centered_clip", recording)
+    cfg = tswarm.SwarmConfig(aggregator="centered_clip", topology="random_regular")
+    sw = tswarm.Swarm(loss_fn, {"w": torch.zeros(d, device=cuda)}, SGD(lr=0.1, momentum=0.0),
+                      _card_roster(n), cfg, data_fn)
+    for k in magg.LAUNCHES:
+        magg.LAUNCHES[k] = 0
+    for r in range(rounds):
+        sw.step(r)
+    assert magg.LAUNCHES == {"masked_median": n * rounds, "masked_cc_iter": 3 * n * rounds,
+                             "masked_krum_d2": 0}
+    assert len(seen) == n * rounds and sw.params["w"].shape == (n, d)
+    w = sw._lane.mixing
+    for j, (x, mask, out, kw) in enumerate(seen):
+        assert torch.equal(mask, w[j % n] > 0)          # node j % n's neighbourhood
+        lone = magg.masked_centered_clip_fused(x, mask, **kw)
+        assert torch.equal(lone.view(torch.int32), out.view(torch.int32)), j
+        v = magg.masked_median_plain(x, mask)
+        for _ in range(3):
+            v = magg.masked_cc_iter_plain(x, v, mask, None)
+        assert bool(((out - v).abs() <= 3e-5 + 3e-5 * v.abs()).all()), j
+    assert all(np.isfinite(h["consensus_error"]) and h["consensus_error"] > 0
+               for h in sw.history)

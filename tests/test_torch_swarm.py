@@ -245,8 +245,8 @@ def test_model_rounds_match_reference():
 
 
 def test_unported_axes_raise():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tswarm.SwarmConfig(topology="ring")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tswarm.SwarmConfig(custody=object())
     with pytest.raises(NotImplementedError, match="item 9"):
         tswarm.SwarmConfig(staleness_bound=2)
     with pytest.raises(NotImplementedError, match="item 10"):
