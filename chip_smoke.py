@@ -67,7 +67,18 @@ Phases, each timed with CUDA events:
 4. the swarm's main path: ``python -m repro_torch.launch.swarm --full
    --rounds 3`` (the showcase: protocol-125m at full width, 10 nodes, QSGD
    wire, CenteredClip, audits), with finite loss, only Byzantine nodes
-   slashed and a conserving ledger;
+   slashed and a conserving ledger; the launcher's custody checkpoint of
+   the trained params (16 shards, redundancy 2, no holder over 40%)
+   restored by every holder bit-equal to ``eval_params()``, two holders
+   refused with ``PermissionError``, the seconds of both printed;
+4d. the custody lane at full width: the showcase's roster and config with
+   custody_leech's ``CustodyConfig(num_shards=16, redundancy=2,
+   max_fraction=0.4, coalition_fraction=0.25)`` for 3 rounds: phase 4's
+   launches, and params, slashed, contrib and records bit-equal to phase
+   4's run (custody only observes); each round's coverage equal to the host
+   custody matrix's over the active nodes; the reconstruct attack of the
+   coalition (the last 3 slots) keeping exactly its shards and zeroing the
+   rest, its loss printed beside the honest one and log V;
 5. one more full-width round on each config that reaches the other swarm
    kernels: krum (krum_d2), the compressed-wire scenario's mean over a
    64-level QSGD wire (decode-accumulate; a second round under
@@ -98,6 +109,16 @@ Phases, each timed with CUDA events:
    round 0 of the roster on ``fully_connected`` against the centralized
    round from the same init, agg_norm and the consensus replica's update
    within 2e-3 (``tests/test_topology.py:160``'s bound);
+4e. the async round at full width: ``python -m repro_torch.launch.swarm
+   --full --scenario stale_poisoning --nodes 10 --rounds 4`` (8 honest
+   nodes and 2 sign-flip attackers that may lag 3 rounds, CenteredClip,
+   audits at p 0.25, staleness bound 3): 4 medians and 12 iterations;
+   each round's staleness equal to the mean, over its active nodes, of the
+   delays the host draws from the same schedule (each at most min(cap,
+   round, 3)); the row a stale attacker submitted in the round of the
+   largest delay bit-equal to its gradient recomputed alone at its
+   snapshot, sign-flipped; no honest node slashed; two more rounds on CUDA
+   events and the phase's peak memory;
 10. the §5.5 sweep: ``derailment.sweep`` of the ``no_off_smoke`` grid
    (mean and CenteredClip against 2 and 6 inner-product attackers beside
    6 honest nodes, and the honest baseline: 5 lanes of one campaign, 8
@@ -137,6 +158,16 @@ Phases, each timed with CUDA events:
    honest, 8 rounds, baselines per topology) on the tiny quadratic, card
    (one median and chain for each node with a kept neighbour, 368) against
    CPU, held as phase 10;
+10e. the async sweep: ``no_off_async_smoke`` (CenteredClip at staleness
+   bounds 0 and 2 against 2 and 6 attackers beside 6 honest, 8 rounds,
+   baselines per bound) on the tiny quadratic, card (32 medians and 96
+   iterations) against CPU, held as phase 10: the delays are drawn on the
+   host, so both draw the same;
+10f. the custody sweep: ``custody_smoke`` (mean, redundancy 1 and 2
+   against coalitions of half and all of 6 honest nodes, a third churning
+   out, the reconstruct attack in every lane) on the tiny quadratic, card
+   against CPU: the extractability and phase tables equal as strings, the
+   coverage traces exactly, the final and extracted losses within 1e-4;
 7. the serving path (``protocol_serve``): ``python -m
    repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
    --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
@@ -218,8 +249,8 @@ Phases, each timed with CUDA events:
    ``flex_attention`` with a sliding-window block mask, zamba2's causal
    triangle against ``scaled_dot_product_attention(is_causal=True)``).
 
-Each driven path (phases 4, 4b, 4c, 5, 7, 7c, 7e, 10, 10b, 10c and 10d) has launch
-counters of its own:
+Each driven path (phases 4, 4b, 4c, 4d, 4e, 5, 7, 7c, 7e, 10, 10b, 10c, 10d, 10e
+and 10f) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
@@ -233,9 +264,11 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -301,6 +334,16 @@ FC_AGG_REL = 2e-3               # fully_connected == centralized (tests/test_top
 NO_OFF_LM_ROUNDS, NO_OFF_LM_CC_LANES = 6, 3
 NO_OFF_LM_AGG_REL, NO_OFF_LM_LOSS_REL, BLOWN_UP, BLOWN_UP_LOSS = 1e-3, 1e-4, 1e3, 1e2
 NO_OFF_LM_BLOWN_REL = 2e-3
+# phase 4d: the showcase with custody_leech's custody (16 shards, redundancy
+# 2, no node over 40%, the last quarter of the roster the coalition)
+CUSTODY = dict(num_shards=16, redundancy=2, max_fraction=0.4, coalition_fraction=0.25)
+# phase 4e: stale_poisoning at full width (8 honest nodes, 2 sign-flip
+# attackers that may lag 3 rounds, CenteredClip, audits at p 0.25, K = 3),
+# 4 rounds, then 2 more timed
+ASYNC_ROUNDS, ASYNC_BOUND = 4, 3
+# phase 10e: no_off_async_smoke (CenteredClip at K = 0 and 2 against 2 and 6
+# attackers beside 6 honest, the baselines: 6 lanes), its 4 CenteredClip lanes
+NO_OFF_ASYNC_CC_LANES = 4
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own[,
 # the launch counter, where the row is the kernel at another path's shape])
@@ -338,6 +381,16 @@ EXPECTED_LAUNCHES = {
     "showcase": {"masked_median": SHOWCASE_ROUNDS,
                  "masked_cc_iter": 3 * SHOWCASE_ROUNDS,
                  "qsgd_encode": N_NODES * SHOWCASE_ROUNDS},
+    # the showcase with a custody lane: the same launches (custody only observes)
+    "showcase_custody": {"masked_median": SHOWCASE_ROUNDS,
+                         "masked_cc_iter": 3 * SHOWCASE_ROUNDS,
+                         "qsgd_encode": N_NODES * SHOWCASE_ROUNDS},
+    # the async round takes the fused median and chain as the synchronous one
+    "stale_poisoning": {k: ASYNC_ROUNDS * v for k, v in _CC_ROUND.items()},
+    "no_off_async_smoke": {k: NO_OFF_ASYNC_CC_LANES * NO_OFF_ROUNDS * v
+                           for k, v in _CC_ROUND.items()},
+    # custody_smoke's lanes are all mean over an uncompressed wire: no kernel
+    "custody_smoke": {},
     "showcase_sequential": {"masked_median": SHOWCASE_ROUNDS,
                             "cc_iter": 3 * SHOWCASE_ROUNDS},
     "krum": {"masked_krum_d2": 1},
@@ -401,6 +454,8 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(smoke.tmp, ignore_errors=True)
     return 0
 
 
@@ -413,6 +468,7 @@ class Smoke:
         self.row_errors = {}       # kernel -> mean row relative L2, where phase 3 reads one
         self.launches = {}         # driven path -> {kernel: launches on it}
         self.scan_split = {}       # kernel -> {its launch kind: mean ms a launch}
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_")   # the custody checkpoints
 
     # -- helpers ------------------------------------------------------------------
     def phase(self, name, fn):
@@ -455,6 +511,10 @@ class Smoke:
         self.errors[name] = max(self.errors.get(name, 0.0), err)
         return err
 
+    def ckpt_args(self, name):
+        """The launcher's ``--ckpt`` into this run's temporary directory."""
+        return ["--ckpt", str(Path(self.tmp) / name)]
+
     def counted(self, path, fn):
         """Run ``fn`` with every launch counter at 0 and hold the counts
         just after it to ``EXPECTED_LAUNCHES[path]``."""
@@ -489,6 +549,9 @@ class Smoke:
         self.phase("3c ssd_scan vs plain", self.ssd_vs_plain)
         torch.cuda.reset_peak_memory_stats()
         main_out = self.phase("4 main path (showcase, full width)", self.main_path)
+        self.phase("4d custody lane (showcase with custody_leech's custody, full width)",
+                   lambda: self.custody_lane(main_out))
+        self.free()
         self.phase("5 other configs (full width)", lambda: self.other_configs(main_out))
         self.phase("6 fused vs unfused", lambda: self.fused_vs_unfused(main_out))
         self.phase("6b showcase rounds timed and profiled",
@@ -505,10 +568,16 @@ class Smoke:
         self.phase("4c decentralized round (byzantine_neighborhood, full width)",
                    self.decentralized_path)
         self.free()
+        torch.cuda.reset_peak_memory_stats()
+        self.phase("4e async round (stale_poisoning, full width)", self.async_path)
+        self.free()
         self.phase("10 no_off_smoke on the tiny quadratic, card vs CPU", self.no_off_smoke)
         self.phase("10c no_off_lm on the small LM, card vs CPU", self.no_off_lm)
         self.phase("10d no_off_topology_smoke on the tiny quadratic, card vs CPU",
                    self.no_off_topology)
+        self.phase("10e no_off_async_smoke on the tiny quadratic, card vs CPU",
+                   self.no_off_async)
+        self.phase("10f custody_smoke on the tiny quadratic, card vs CPU", self.custody_smoke)
         torch.cuda.reset_peak_memory_stats()
         self.phase("10b no_off_smoke campaign on protocol-125m (full width)",
                    lambda: self.campaign_full_width(main_out["problem"]))
@@ -946,7 +1015,7 @@ class Smoke:
         from repro_torch.core.swarm import BEHAVIOURS
         from repro_torch.launch import swarm as launch
         out = self.counted("showcase", lambda: launch.main(
-            ["--full", "--rounds", str(SHOWCASE_ROUNDS)]))
+            ["--full", "--rounds", str(SHOWCASE_ROUNDS)] + self.ckpt_args("showcase")))
         sw = out["swarm"]
         byz = {n.node_id for n in sw.nodes if n.byzantine in BEHAVIOURS[1:]}
         check(all(math.isfinite(l) for l in out["losses"]), "non-finite loss")
@@ -954,9 +1023,110 @@ class Smoke:
         check(sw.ledger.check_conservation(), "ledger does not conserve")
         check(sw.fused, "the full-width showcase should take the fused path")
         print(f"  showcase: {out['seconds'] / out['rounds']:.3f} s/round, "
-              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"losses {out['losses']}, slashed {sorted(sw.slashed)}", flush=True)
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"(the checkpoint's flat copy included), losses {out['losses']}, slashed "
+              f"{sorted(sw.slashed)}", flush=True)
+        self.hold_checkpoint(out)
         return out
+
+    def hold_checkpoint(self, out):
+        """The launcher's custody checkpoint of the trained params: restored
+        by every holder it equals ``eval_params()`` bit for bit; two holders
+        are refused with ``PermissionError``."""
+        torch = self.torch
+        from repro_torch.checkpoint import checkpoint as ckpt
+        sw, custody = out["swarm"], out["custody"]
+        holders = list(custody.node_ids)
+        t0 = time.time()
+        back = ckpt.restore_custody(out["ckpt"], sw.eval_params(), holders=holders)
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+        for k, v in sw.eval_params().items():
+            bits = torch.int16 if v.dtype == torch.bfloat16 else torch.int32
+            check(back[k].dtype == v.dtype and torch.equal(back[k].view(bits), v.view(bits)),
+                  f"checkpoint: {k} restored by every holder differs from eval_params()")
+        del back
+        try:
+            ckpt.restore_custody(out["ckpt"], sw.eval_params(), holders=holders[:2])
+        except PermissionError as e:
+            refused = str(e)
+        else:
+            raise PhaseFailed("checkpoint: two holders restored the params")
+        files = list(Path(out["ckpt"]).iterdir())
+        print(f"  custody checkpoint: {len(files)} files, "
+              f"{sum(f.stat().st_size for f in files) / 1e9:.2f} GB, written in "
+              f"{out['ckpt_seconds']:.3f} s (host clock, the launcher's partial-restore "
+              f"refusal included); restored by all {len(holders)} holders in {restore_s:.3f} s, "
+              f"bit-equal to eval_params(); two holders refused ({refused})", flush=True)
+        shutil.rmtree(out["ckpt"], ignore_errors=True)
+
+    def custody_lane(self, main_out):
+        """Phase 4d: the showcase's roster and config with custody_leech's
+        custody (``CUSTODY``) for the showcase's rounds, on counters of its
+        own: custody only observes, so params, slashed, contrib and the
+        records equal phase 4's run bit for bit, with the same launches;
+        each round's coverage equals the host custody matrix's over the
+        round's active nodes; the reconstruct attack of the coalition (the
+        last quarter of the roster) keeps exactly its shards and zeroes the
+        rest, and its loss is printed beside the honest one."""
+        torch = self.torch
+        from dataclasses import replace
+        from repro_torch.core.unextractable import (CustodyConfig, masked_reconstruct,
+                                                    shards_covered)
+        from repro_torch.launch import swarm as launch
+        problem, nodes, base = main_out["problem"], main_out["nodes"], main_out["swarm"]
+        _, cfg = launch.showcase_roster(SHOWCASE_ROUNDS)
+        sw = launch.make_showcase_swarm(problem, nodes, replace(cfg, custody=CustodyConfig(
+            **CUSTODY)))
+        self.counted("showcase_custody",
+                     lambda: [sw.step(r) for r in range(SHOWCASE_ROUNDS)])
+        torch.cuda.synchronize()
+        for k, v in sw.params.items():
+            check(torch.equal(v.view(torch.int32), base.params[k].view(torch.int32)),
+                  f"custody lane: params[{k}] differ from the showcase's")
+        check(torch.equal(sw.contrib.view(torch.int32), base.contrib.view(torch.int32))
+              and sw.slashed == base.slashed, "custody lane: contrib or slashed differ")
+        slashed, coverage = set(), []
+        for h, hb in zip(sw.history, base.history[:SHOWCASE_ROUNDS]):
+            check({k: v for k, v in h.items() if k != "coverage"}
+                  == {k: v for k, v in hb.items() if k != "coverage"},
+                  f"custody lane: round {h['round']}'s record differs: {h} / {hb}")
+            active = [i for i, n in enumerate(nodes)
+                      if n.active(h["round"]) and n.node_id not in slashed]
+            check(h["coverage"] == float(sw.custody_matrix[active].any(0).mean()),
+                  f"custody lane: round {h['round']} coverage {h['coverage']}")
+            coverage.append(h["coverage"])
+            slashed |= set(h["caught"])
+        lane = sw._lane
+        covered = shards_covered(lane.custody, lane.coalition)
+        coal = [n.node_id for n, c in zip(nodes, lane.coalition.tolist()) if c]
+        frac = float(covered.float().mean())
+        check(frac < 1.0, f"custody lane: the coalition {coal} covers every shard")
+        honest = sw.eval_params()
+        with torch.no_grad():
+            got = masked_reconstruct(honest, covered)
+            flat_h = torch.cat([honest[k].reshape(-1).float() for k in sorted(honest)])
+            flat_x = torch.cat([got[k].reshape(-1).float() for k in sorted(got)])
+            size = flat_h.numel()
+            pad = (-size) % CUSTODY["num_shards"]
+            chunks_h = torch.nn.functional.pad(flat_h, (0, pad)).view(CUSTODY["num_shards"], -1)
+            chunks_x = torch.nn.functional.pad(flat_x, (0, pad)).view(CUSTODY["num_shards"], -1)
+            check(torch.equal(chunks_x[covered], chunks_h[covered])
+                  and bool((chunks_x[~covered] == 0).all()),
+                  "custody lane: the reconstruct attack does not keep exactly the "
+                  "coalition's shards")
+            del flat_h, flat_x, chunks_h, chunks_x
+            honest_loss = problem.eval_loss(honest, len(nodes))
+            extracted_loss = problem.eval_loss(got, len(nodes))
+        del got
+        check(math.isfinite(honest_loss) and math.isfinite(extracted_loss),
+              "custody lane: non-finite loss")
+        print(f"  custody lane: launches, params, slashed, contrib and records equal to phase "
+              f"4's; coverage {coverage} (the host custody matrix's over the active nodes); "
+              f"coalition {coal} holds {frac:.4f} of the shards; reconstruct-attack loss "
+              f"{extracted_loss:.6f} beside the honest {honest_loss:.6f} (log V = "
+              f"{math.log(problem.cfg.vocab_size):.6f})", flush=True)
+        del sw
 
     def other_configs(self, main_out):
         from repro_torch.core.swarm import NodeSpec, SwarmConfig
@@ -1130,7 +1300,8 @@ class Smoke:
         held = torch.cuda.memory_allocated() / 2**30
         torch.cuda.reset_peak_memory_stats()
         out = self.counted("showcase_sequential", lambda: launch.main(
-            ["--full", "--rounds", str(SHOWCASE_ROUNDS), "--engine", "sequential"]))
+            ["--full", "--rounds", str(SHOWCASE_ROUNDS), "--engine", "sequential"]
+            + self.ckpt_args("showcase_sequential")))
         sw = out["swarm"]
         byz = {n.node_id for n in sw.nodes if n.byzantine in BEHAVIOURS[1:]}
         check(isinstance(sw, SequentialSwarm), "not the sequential engine")
@@ -1218,7 +1389,8 @@ class Smoke:
               f"phase tables differ, card:\n{table}\nCPU:\n{cpu.phase_table()}")
         worst = 0.0
         for a, b in zip(card.results, cpu.results):
-            for field in ("regime", "topology", "n_attackers", "derailed", "attackers_slashed"):
+            for field in ("regime", "topology", "staleness_bound", "redundancy",
+                          "coalition_fraction", "n_attackers", "derailed", "attackers_slashed"):
                 check(getattr(a, field) == getattr(b, field),
                       f"{field} differs card vs CPU: {a} / {b}")
             for field in ("final_loss", "baseline_loss"):
@@ -1260,7 +1432,7 @@ class Smoke:
         try:
             out = self.counted("byzantine_neighborhood", lambda: launch.main(
                 ["--full", "--scenario", "byzantine_neighborhood", "--nodes", str(N_NODES),
-                 "--rounds", str(DEC_ROUNDS)]))
+                 "--rounds", str(DEC_ROUNDS)] + self.ckpt_args("byzantine_neighborhood")))
         finally:
             magg.FUSED_MASKED_AGGREGATORS["centered_clip"] = fused_cc
         torch.cuda.synchronize()
@@ -1318,6 +1490,154 @@ class Smoke:
         del out, sw, events
         self.free()
         self.fully_connected_vs_centralized(problem, nodes, cfg)
+
+    def async_path(self):
+        """Phase 4e: ``python -m repro_torch.launch.swarm --full --scenario
+        stale_poisoning --nodes 10 --rounds 4`` on counters of its own (the
+        async round, K = 3: a median and a chain of 3 a round).  Each
+        round's staleness equals the mean, over the active nodes, of the
+        delays the host draws from the same schedule, each at most min(cap,
+        round, K); the row a stale attacker submitted in the round of the
+        largest delay is bit-equal to its gradient recomputed alone at its
+        snapshot, sign-flipped; no honest node is slashed.  Then two rounds
+        on CUDA events and the peak memory."""
+        torch = self.torch
+        from repro_torch.core.scenarios import get_scenario
+        from repro_torch.core.swarm import _node_gradient
+        from repro_torch.kernels.masked_agg import ops as magg
+        from repro_torch.launch import swarm as launch
+        from repro_torch.models.convert import flatten_into
+        from repro_torch.random import RoundRandom
+        nodes = get_scenario("stale_poisoning").make_nodes(N_NODES)
+        caps = [min(n.effective_delay, ASYNC_BOUND) for n in nodes]
+        delays = [[RoundRandom(0, r, self.dev).delay(i, min(c, r, ASYNC_BOUND))
+                   for i, c in enumerate(caps)] for r in range(ASYNC_ROUNDS)]
+        held_r = max(range(ASYNC_ROUNDS), key=lambda r: max(delays[r]))
+        held_i = max(range(N_NODES), key=lambda i: delays[held_r][i])
+        fused_cc = magg.FUSED_MASKED_AGGREGATORS["centered_clip"]
+        held, calls = {}, [0]
+
+        def recording(updates, mask, **kw):
+            if calls[0] == held_r:
+                held["row"] = updates[held_i].clone()
+            calls[0] += 1
+            return fused_cc(updates, mask, **kw)
+
+        magg.FUSED_MASKED_AGGREGATORS["centered_clip"] = recording
+        try:
+            out = self.counted("stale_poisoning", lambda: launch.main(
+                ["--full", "--scenario", "stale_poisoning", "--nodes", str(N_NODES),
+                 "--rounds", str(ASYNC_ROUNDS)] + self.ckpt_args("stale_poisoning")))
+        finally:
+            magg.FUSED_MASKED_AGGREGATORS["centered_clip"] = fused_cc
+        torch.cuda.synchronize()
+        sw = out["swarm"]
+        honest = {n.node_id for n in nodes if n.byzantine is None}
+        check(sw.fused and sw.cfg.staleness_bound == ASYNC_BOUND, "not the fused async round")
+        check(not sw.slashed & honest, f"honest node slashed: {sorted(sw.slashed & honest)}")
+        check(all(math.isfinite(l) for l in out["losses"]) and sw.ledger.check_conservation(),
+              "non-finite loss or ledger off")
+        slashed = set()
+        for r, h in enumerate(sw.history):
+            active = torch.tensor([n.active(r) and n.node_id not in slashed for n in nodes],
+                                  dtype=torch.float32)
+            want = float(torch.sum(torch.tensor(delays[r], dtype=torch.float32) * active)
+                         / torch.clamp(torch.sum(active), min=1.0))
+            check(h["staleness"] == want, f"round {r}: staleness {h['staleness']} vs {want}")
+            check(all(d <= min(c, r, ASYNC_BOUND) for d, c in zip(delays[r], caps)),
+                  f"round {r}: a delay above its cap")
+            slashed |= set(h["caught"])
+        d = delays[held_r][held_i]
+        check(d > 0, "no delay above 0 was drawn")
+        snapshot = sw._ring[(held_r - d) % (ASYNC_BOUND + 1)]
+        g = torch.empty_like(held["row"])
+        flatten_into(g, _node_gradient(sw.loss_fn, snapshot, sw.data_fn(held_i, held_r)))
+        row = -sw._lane.scales[held_i] * g
+        check(self.bit_equal(row, held["row"]),
+              f"node {held_i}'s round-{held_r} row differs from its gradient at round "
+              f"{held_r - d}'s params, sign-flipped")
+        del g, row, snapshot
+        held.clear()
+        print(f"  stale_poisoning: realized delays {delays} (caps {caps}); staleness "
+              f"{[h['staleness'] for h in sw.history]}; node {held_i}'s round-{held_r} row "
+              f"(delay {d}) bit-equal to its gradient at round {held_r - d}'s params recomputed "
+              f"alone; slashed {sorted(sw.slashed)}; losses {out['losses']}; launcher "
+              f"{out['seconds'] / out['rounds']:.3f} s/round; custody checkpoint "
+              f"{out['ckpt_seconds']:.3f} s", flush=True)
+        shutil.rmtree(out["ckpt"], ignore_errors=True)
+        del out
+        self.free()
+        ms = []
+        for r in range(ASYNC_ROUNDS, ASYNC_ROUNDS + 2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            sw.step(r)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        print(f"  async rounds {ASYNC_ROUNDS}-{ASYNC_ROUNDS + 1} on CUDA events: "
+              f"{[round(x / 1e3, 4) for x in ms]} s; max_memory_allocated of the phase "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the ring holds "
+              f"{ASYNC_BOUND + 1} param dicts by reference)", flush=True)
+
+    def no_off_async(self):
+        """Phase 10e: the ``no_off_async_smoke`` sweep (CenteredClip at K =
+        0 and 2 against 2 and 6 inner-product attackers beside 6 honest, 8
+        rounds, baselines per bound) on the tiny quadratic, on the card (its
+        4 CenteredClip lanes through the median and the chain) and on the
+        CPU: the delays are drawn on the host, so both draw the same ones;
+        tables and cells held as phase 10's."""
+        from repro_torch.core import derailment, scenarios
+        from repro_torch.launch import problems
+        grid = scenarios.get_sweep_grid("no_off_async_smoke")
+
+        def run(device):
+            loss_fn, params, data_fn, eval_fn, opt = problems.tiny_quadratic_problem(
+                device=device)
+            return derailment.sweep(loss_fn, params, opt, data_fn, eval_fn, grid)
+
+        card = self.counted("no_off_async_smoke", lambda: run("cuda"))
+        self.hold_tables("no_off_async_smoke (tiny quadratic, 16 params)", card, run("cpu"),
+                         NO_OFF_LOSS_REL)
+
+    def custody_smoke(self):
+        """Phase 10f: the ``custody_smoke`` sweep (mean, redundancy 1 and 2
+        against coalitions of half and all of 6 honest nodes, a third of
+        them churning out, 8 rounds, the reconstruct attack in every lane)
+        on the tiny quadratic, card against CPU: the extractability and
+        phase tables equal as strings, the coverage traces exactly equal,
+        the final, baseline and extracted losses within NO_OFF_LOSS_REL."""
+        from repro_torch.core import derailment, scenarios
+        from repro_torch.launch import problems
+        grid = scenarios.get_sweep_grid("custody_smoke")
+
+        def run(device):
+            loss_fn, params, data_fn, eval_fn, opt = problems.tiny_quadratic_problem(
+                device=device)
+            return derailment.sweep(loss_fn, params, opt, data_fn, eval_fn, grid,
+                                    return_campaign=True)
+
+        card, (_, card_recs, _) = self.counted("custody_smoke", lambda: run("cuda"))
+        cpu, (_, cpu_recs, _) = run("cpu")
+        table = card.extractability_table()
+        print("  custody_smoke extractability table on the card:\n"
+              + "\n".join("    " + line for line in table.splitlines()), flush=True)
+        check(table == cpu.extractability_table(),
+              f"extractability tables differ, CPU:\n{cpu.extractability_table()}")
+        check(self.torch.equal(card_recs.coverage.cpu(), cpu_recs.coverage),
+              "coverage traces differ card vs CPU")
+        worst = 0.0
+        for a, b in zip(card.results, cpu.results):
+            check(math.isfinite(a.extracted_loss) and math.isfinite(b.extracted_loss),
+                  f"non-finite extracted loss: {a}")
+            rel = abs(a.extracted_loss - b.extracted_loss) / max(abs(b.extracted_loss), 1e-30)
+            worst = max(worst, rel)
+            check(rel <= NO_OFF_LOSS_REL, f"extracted loss {a.extracted_loss} vs "
+                                          f"{b.extracted_loss}, rel {rel:.3e}")
+        self.hold_tables("custody_smoke (tiny quadratic, 16 params)", card, cpu, NO_OFF_LOSS_REL)
+        print(f"  custody_smoke: coverage traces equal, extracted losses "
+              f"within {worst:.3e} relative; last-round coverage "
+              f"{card_recs.coverage[:, -1].tolist()}", flush=True)
 
     def fully_connected_vs_centralized(self, problem, nodes, cfg):
         """Round 0 of the roster on ``fully_connected`` (every replica

@@ -14,21 +14,26 @@ and the verification regime:
   than it damages; the paper concludes only physical intervention remains.
 
 ``simulate_derailment`` measures one point on a real training run;
-``sweep`` measures the whole **phase diagram** — every (topology, attacker
-count, scale, seed) cell of every (aggregator, verification) regime of a
-``scenarios.SweepGrid``, plus an honest baseline per (topology, seed) — as
-the lanes of one ``swarm.run_campaign``, the regimes routed by each lane's
-aggregator id and audit rate, the topologies by each lane's mixing matrix
-(the decentralized round).  ``attack_cost`` prices the attack (compute +
-slashed stakes); ``no_off_report`` renders the table row by row.
+``sweep`` measures the whole **phase diagram** — every (topology,
+staleness bound, redundancy, coalition fraction, attacker count, scale,
+seed) cell of every (aggregator, verification) regime of a
+``scenarios.SweepGrid``, plus an honest baseline per (topology, staleness
+bound, seed) — as the lanes of one ``swarm.run_campaign``: the regimes
+routed by each lane's aggregator id and audit rate, the topologies by its
+mixing matrix (the decentralized round), the staleness bounds by its
+per-node delay caps (the async round) and the custody cells by its custody
+matrix and coalition mask (the live coverage and the reconstruct-attack
+eval, read by ``SweepResult.extractability_table``).  ``attack_cost``
+prices the attack (compute + slashed stakes); ``no_off_report`` renders
+the table row by row.
 
-The reference's later axes raise ``NotImplementedError`` naming their
-ROADMAP queue 1 item where a sweep reaches them: staleness bounds (9),
-custody and the extractability table (7), the economy axes and their
-tables (10), and a ``MeshPlan`` placement (13).
+The reference's economy axes and their tables (ROADMAP queue 1, item 10)
+and a ``MeshPlan`` placement (item 13) raise ``NotImplementedError`` naming
+their item where a sweep reaches them.
 """
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import topology as topo_mod
+from repro_torch.core import unextractable
 from repro_torch.core.scenarios import Regime, SweepGrid
 from repro_torch.core.swarm import (
     BEHAVIOUR_CODES,
@@ -141,8 +147,10 @@ def simulate_derailment(loss_fn, init_params, optimizer, data_fn, eval_fn, *,
     decentralized round; the baseline is then trained on the same
     topology, over a graph the size of the attacked swarm's (the attacker
     slots ride as never-joining relays), so the ratio isolates the attack
-    and not the graph.  ``staleness_bound`` (item 9) raises through
-    ``SwarmConfig``.  ``return_swarm=True`` returns ``(result, swarm)``,
+    and not the graph.  ``staleness_bound=K > 0`` runs the point in the
+    async round, every node's cap K; the baseline then runs at the same
+    bound, so the ratio isolates the attack, not the asynchrony.
+    ``return_swarm=True`` returns ``(result, swarm)``,
     the attacked swarm after its run.  For whole phase diagrams use
     :func:`sweep`, which shares the baseline and runs every point of every
     regime as one campaign.
@@ -213,17 +221,12 @@ class SweepResult:
         raise NotImplementedError("the economy adaptive gap is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
 
-    def extractability_table(self) -> str:
-        raise NotImplementedError("the extractability table is not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
-
     def phase_table(self) -> str:
         """The §5.5 phase diagram: derailed-seed counts per (regime [,
         topology][, staleness bound], attacker fraction) cell,
         attackers-slashed appended when any.  Topology-axis sweeps get one
-        row per (regime, topology), labelled ``regime@topology``.  (The
-        staleness label follows the reference's layout; no port sweep has
-        that axis yet.)"""
+        row per (regime, topology), labelled ``regime@topology``;
+        staleness-axis sweeps one row per bound, labelled ``... s=K``."""
         fracs = sorted({r.attacker_fraction for r in self.results})
         sbounds: Tuple = self.grid.staleness_bounds or (None,)
         rows: List[Tuple[str, str, Optional[int]]] = []
@@ -260,12 +263,51 @@ class SweepResult:
             lines.append(label.ljust(width) + "".join(cells))
         return "\n".join(lines)
 
+    def extractability_table(self) -> str:
+        """The §4.1 extractability phase table: one row per (regime [,
+        topology], redundancy), one column per coalition fraction; each
+        cell shows the regime letter of each of its (seed x count x scale)
+        cells — P = protocol_model, X = extractable, D = degraded — and the
+        mean coalition shard coverage."""
+        cust = [r for r in self.results if r.redundancy > 0]
+        if not cust:
+            return "(no custody axis in this sweep)"
+        fracs = sorted({r.coalition_fraction for r in cust})
+        rows = sorted({(r.regime, r.topology, r.redundancy) for r in cust})
+        labels = [reg + (f"@{topo}" if topo else "") + f" r={red}"
+                  for reg, topo, red in rows]
+        width = max([24] + [len(l) + 2 for l in labels])
+        head = "custody".ljust(width) + "".join(f"coal={f:.2f}".rjust(16) for f in fracs)
+        code = {"protocol_model": "P", "extractable": "X", "degraded": "D"}
+        lines = [head]
+        for (reg, topo, red), label in zip(rows, labels):
+            cells = []
+            for f in fracs:
+                cell = [r for r in cust
+                        if r.regime == reg and r.topology == topo
+                        and r.redundancy == red
+                        and abs(r.coalition_fraction - f) < 1e-9]
+                if not cell:
+                    cells.append("-".rjust(16))
+                    continue
+                marks = "".join(code[r.extractability] for r in cell)
+                cov = sum(r.coalition_coverage for r in cell) / len(cell)
+                cells.append(f"{marks} cov={cov:.2f}".rjust(16))
+            lines.append(label.ljust(width) + "".join(cells))
+        lines.append("(P=protocol_model  X=extractable  D=degraded, one "
+                     "letter per cell; cov = coalition shard coverage)")
+        return "\n".join(lines)
+
 
 def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
                 scale: float, seed: int,
                 v: Optional[VerificationConfig],
                 agg_id: int, agg_kwargs: Dict,
-                mixing: Optional[np.ndarray] = None) -> LaneParams:
+                mixing: Optional[np.ndarray] = None,
+                leaves: Optional[np.ndarray] = None,
+                custody: Optional[np.ndarray] = None,
+                coalition: Optional[np.ndarray] = None,
+                delays: Optional[np.ndarray] = None) -> LaneParams:
     """One run lane: honest nodes first, ``count`` attackers, then padding
     that never joins (all regimes share a fixed N so they run as one
     campaign).  Node indices — and therefore the ``(seed, purpose, round,
@@ -277,7 +319,12 @@ def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
     (they mix and update, never contribute), which holds the graph fixed
     across attacker counts, so a decentralized cell equals its
     ``simulate_derailment(topology=...)`` twin, whose graph spans its own
-    roster, only at ``count == max(attacker_counts)``."""
+    roster, only at ``count == max(attacker_counts)``.  ``leaves``
+    (custody-churn sweeps) replaces the never-leave schedule; ``custody`` /
+    ``coalition`` are the lane's (n_total, S) custody matrix and (n_total,)
+    coalition mask (padding rows hold nothing); ``delays`` (async sweeps)
+    the (n_total,) per-node staleness caps, so that every bound of the
+    axis shares the campaign."""
     codes = np.zeros(n_total, np.int32)
     codes[n_honest:n_honest + count] = code
     scales = np.full(n_total, 10.0, np.float32)     # NodeSpec default
@@ -289,7 +336,7 @@ def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
         scales=scales,
         speeds=np.ones(n_total, np.float32),
         joins=joins,
-        leaves=np.full(n_total, _FAR, np.int32),
+        leaves=np.full(n_total, _FAR, np.int32) if leaves is None else leaves,
         seed=int(seed),
         p_check=float(v.p_check) if v else 0.0,
         tolerance=float(v.tolerance) if v else 1.0,
@@ -297,6 +344,9 @@ def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
         agg_kwargs={k: np.asarray(x) for k, x in agg_kwargs.items()},
         agg_id=int(agg_id),
         mixing=mixing,
+        custody=custody,
+        coalition=coalition,
+        delays=delays,
     )
 
 
@@ -305,13 +355,16 @@ class SweepProgramSpec:
     """Everything :func:`sweep` feeds the campaign engine, built without
     running anything: the lane list (host arrays — ``swarm.stack_lanes``
     moves them to the device once), per-lane metadata, the shared
-    aggregator set."""
+    aggregator set, and ``coalition_coverage(redundancy, fraction,
+    count)``, the shard fraction a custody cell's coalition holds."""
     lanes: List[LaneParams]
     metas: List[tuple]
     agg_specs: List[Tuple[str, Dict]]
     verify: bool
+    has_custody: bool
     n_honest: int
     n_total: int
+    coalition_coverage: Callable[[int, float, int], float]
 
     @property
     def aggregator(self):
@@ -326,9 +379,8 @@ class SweepProgramSpec:
 
 
 #: a SweepGrid's later-axis fields -> the ROADMAP queue 1 item each waits for
-_GRID_AXES = (("staleness_bounds", 9), ("redundancies", 7),
-              ("coalition_fractions", 7), ("identity_costs", 10), ("fees", 10),
-              ("reward_schedules", 10), ("adaptive", 10))
+_GRID_AXES = (("identity_costs", 10), ("fees", 10), ("reward_schedules", 10),
+              ("adaptive", 10))
 
 
 def _refuse_later_axes(grid: SweepGrid) -> None:
@@ -339,13 +391,15 @@ def _refuse_later_axes(grid: SweepGrid) -> None:
                 f"(ROADMAP queue 1, item {item})")
 
 
-def build_sweep_lanes(grid: SweepGrid) -> SweepProgramSpec:
+def build_sweep_lanes(grid: SweepGrid, *, rounds: Optional[int] = None) -> SweepProgramSpec:
     """Build every lane of a :class:`~repro_torch.core.scenarios.SweepGrid`'s
     phase diagram — the grid cells, plus the shared honest baselines —
     without running anything.  See :class:`SweepProgramSpec`.  The lanes,
-    their order and their metadata are the reference's for every grid of
-    the synchronous round, centralized or over ``grid.topologies``."""
+    their order and their metadata are the reference's for every grid but
+    the economy's.  ``rounds`` (default ``grid.rounds``) places the custody
+    churn's leave rounds."""
     _refuse_later_axes(grid)
+    rounds = grid.rounds if rounds is None else rounds
     n_honest = grid.n_honest
     n_total = n_honest + max(grid.attacker_counts)
     code = BEHAVIOUR_CODES[grid.attack]
@@ -373,29 +427,101 @@ def build_sweep_lanes(grid: SweepGrid) -> SweepProgramSpec:
     mixings = {t: (topo_mod.mixing_matrix(t, n_total, seed=0).astype(np.float32)
                    if t else None) for t in topos}
 
+    # the custody axis: one custody matrix per (redundancy, count), over the
+    # slots that join (padding rows hold nothing), drawn at seed 0 as the
+    # topology axis is (run seeds vary noise and churn, never who holds
+    # what), and one coalition mask per (fraction, count): the last
+    # ceil(fraction * roster) joined slots, attackers first
+    has_custody = grid.has_custody
+    reds = (grid.redundancies or (2,)) if has_custody else (0,)
+    cfracs = (grid.coalition_fractions or (0.0,)) if has_custody else (0.0,)
+
+    # the asynchrony axis: per-node staleness caps on the lane; the campaign
+    # sizes its ring by the largest, so every bound, 0 included, shares it
+    has_async = bool(grid.staleness_bounds)
+    sbounds = grid.staleness_bounds if has_async else (0,)
+
+    @functools.lru_cache(maxsize=None)
+    def delays_for(bound: int, count: int) -> Optional[np.ndarray]:
+        if not has_async:
+            return None
+        d = np.zeros(n_total, np.int32)
+        d[:n_honest + count] = bound
+        return d
+
+    @functools.lru_cache(maxsize=None)
+    def custody_for(red: int, count: int) -> Optional[np.ndarray]:
+        if not has_custody:
+            return None
+        full = np.zeros((n_total, grid.num_shards), bool)
+        full[:n_honest + count] = unextractable.assign_matrix(
+            n_honest + count, grid.num_shards, red, seed=0,
+            max_fraction=grid.custody_max_fraction)
+        return full
+
+    @functools.lru_cache(maxsize=None)
+    def coalition_for(frac: float, count: int) -> Optional[np.ndarray]:
+        if not has_custody:
+            return None
+        mask = np.zeros(n_total, bool)
+        mask[:n_honest + count] = unextractable.coalition_tail_mask(n_honest + count, frac)
+        return mask
+
+    @functools.lru_cache(maxsize=None)
+    def leaves_for(seed: int) -> Optional[np.ndarray]:
+        """The custody churn: ``custody_leave_fraction`` of the honest
+        roster leaves on staggered rounds in the back two thirds of the
+        run, drawn per seed (only with the custody axis, whose coverage
+        columns show what it does)."""
+        if grid.custody_leave_fraction <= 0 or not has_custody:
+            return None
+        lv = np.full(n_total, _FAR, np.int32)
+        k = min(n_honest - 1, int(grid.custody_leave_fraction * n_honest))
+        rng = np.random.default_rng(10_000 + seed)
+        start = max(1, rounds // 3)
+        for j, i in enumerate(sorted(rng.choice(n_honest, k, replace=False))):
+            lv[int(i)] = start + j % max(1, rounds - start)
+        return lv
+
     lanes, metas = [], []
     for reg in grid.regimes:
         aid = agg_index[(reg.aggregator, tuple(sorted(reg.agg_kwargs.items())))]
         for topo in topos:
-            for count in grid.attacker_counts:
-                for scale in grid.scales:
-                    for seed in grid.seeds:
-                        lanes.append(_sweep_lane(n_total, n_honest, count, code, scale,
-                                                 seed, reg.verification, aid,
-                                                 lane_kw(count), mixing=mixings[topo]))
-                        metas.append((reg, topo, 0, 0, 0.0, count, scale, seed,
-                                      None, None, None, None))
+            for sbound in sbounds:
+                for red in reds:
+                    for cfrac in cfracs:
+                        for count in grid.attacker_counts:
+                            for scale in grid.scales:
+                                for seed in grid.seeds:
+                                    lanes.append(_sweep_lane(
+                                        n_total, n_honest, count, code, scale, seed,
+                                        reg.verification, aid, lane_kw(count),
+                                        mixing=mixings[topo], leaves=leaves_for(seed),
+                                        custody=custody_for(red, count),
+                                        coalition=coalition_for(cfrac, count),
+                                        delays=delays_for(sbound, count)))
+                                    metas.append((reg, topo, sbound, red, cfrac, count,
+                                                  scale, seed, None, None, None, None))
     for topo in topos:                   # baseline lanes (count = 0), one a
-        for seed in grid.seeds:          # (topology, seed)
-            lanes.append(_sweep_lane(n_total, n_honest, 0, code, 0.0, seed, None,
-                                     agg_index[("mean", ())], lane_kw(0),
-                                     mixing=mixings[topo]))
-            metas.append((None, topo, 0, 0, 0.0, 0, 0.0, seed, None, None, None, False))
+        for sbound in sbounds:           # (topology, staleness bound, seed):
+            for seed in grid.seeds:      # async baselines run at the bound
+                lanes.append(_sweep_lane(
+                    n_total, n_honest, 0, code, 0.0, seed, None,
+                    agg_index[("mean", ())], lane_kw(0), mixing=mixings[topo],
+                    leaves=leaves_for(seed), custody=custody_for(reds[0], 0),
+                    coalition=coalition_for(0.0, 0), delays=delays_for(sbound, 0)))
+                metas.append((None, topo, sbound, reds[0], 0.0, 0, 0.0, seed,
+                              None, None, None, False))
+
+    def coalition_coverage(red: int, cfrac: float, count: int) -> float:
+        cov = custody_for(red, count) & coalition_for(cfrac, count)[:, None]
+        return float(cov.any(axis=0).mean())
 
     return SweepProgramSpec(
         lanes=lanes, metas=metas, agg_specs=agg_specs,
         verify=any(reg.verification is not None for reg in grid.regimes),
-        n_honest=n_honest, n_total=n_total)
+        has_custody=has_custody, n_honest=n_honest, n_total=n_total,
+        coalition_coverage=coalition_coverage)
 
 
 def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
@@ -405,19 +531,25 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
           draws_fn: Optional[Callable[[int, int], RoundDraws]] = None):
     """Measure a whole §5.5 phase diagram as **one** campaign.
 
-    Every (regime × topology × attacker count × scale × seed) cell is a
-    lane: verification differences ride in the lanes' ``p_check`` /
-    ``tolerance`` (``p_check = 0`` disables audits), aggregator differences
-    in their ``agg_id`` over the round's aggregator set, topology
-    differences in their mixing matrix (``grid.topologies`` non-empty: every
-    lane then runs the decentralized round), and the honest baseline rides
-    along as extra ``count = 0`` lanes, one per (topology, seed).  Lane building
-    lives in :func:`build_sweep_lanes`.  Each result lane reproduces the
+    Every (regime × topology × staleness bound × redundancy × coalition
+    fraction × attacker count × scale × seed) cell is a lane: verification
+    differences ride in the lanes' ``p_check`` / ``tolerance`` (``p_check =
+    0`` disables audits), aggregator differences in their ``agg_id`` over
+    the round's aggregator set, topology differences in their mixing
+    matrix (``grid.topologies`` non-empty: every lane then runs the
+    decentralized round), staleness bounds in their delay caps
+    (``grid.staleness_bounds``: the async round), custody cells in their
+    custody matrix and coalition (``grid.redundancies`` /
+    ``coalition_fractions``: each lane records its coverage and evaluates
+    the reconstruct attack, feeding :meth:`SweepResult.extractability_table`),
+    and the honest baseline rides along as extra ``count = 0`` lanes, one per
+    (topology, staleness bound, seed).  Lane building lives in
+    :func:`build_sweep_lanes`.  Each result lane reproduces the
     single-point :func:`simulate_derailment` run for the same parameters.
 
     ``fast_compile`` is the reference's XLA option, accepted and unused
     (the port compiles nothing).  ``plan`` (a ``MeshPlan``) waits for the
-    distributed layer (item 13); a grid with a later axis raises its item.
+    distributed layer (item 13); an economy grid raises item 10.
     ``return_campaign=True`` returns ``(result, (state, records, final
     losses))``, the campaign's own outputs, lane j the j-th of
     :func:`build_sweep_lanes` (the cells in ``results`` order, then the
@@ -432,7 +564,7 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
                                   "(ROADMAP queue 1, item 13)")
     rounds = grid.rounds if rounds is None else rounds
     t0 = time.perf_counter()
-    spec = build_sweep_lanes(grid)
+    spec = build_sweep_lanes(grid, rounds=rounds)
     init_loss = _eval(eval_fn, init_params)
     device = next(iter(init_params.values())).device
 
@@ -444,39 +576,53 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
         keep_params=return_campaign, draws_fn=draws_fn)
     campaign = (state, recs, final) if return_campaign else None
     slashed = state.slashed.cpu().numpy()
+    last_coverage = recs.coverage[:, -1].cpu().numpy()
     del state, recs
-    results = sweep_results(spec, final.cpu().numpy(), slashed, init_loss)
+    results = sweep_results(spec, final.cpu().numpy(), slashed, init_loss,
+                            last_coverage)
     result = SweepResult(grid=grid, results=results, n_programs=1,
                          n_runs=len(spec.lanes), wall_s=time.perf_counter() - t0)
     return (result, campaign) if return_campaign else result
 
 
 def sweep_results(spec: SweepProgramSpec, final: np.ndarray, slashed: np.ndarray,
-                  init_loss: float) -> List[DerailmentResult]:
-    """The cells of a sweep from its lanes' outcomes: ``final`` the (L,)
-    final losses and ``slashed`` the (L, N) slashed masks, lane j the j-th
-    of ``spec``; each cell against its (topology, seed)'s baseline lane."""
-    n_honest = spec.n_honest
-    baselines: Dict[Tuple[str, int], float] = {}
+                  init_loss: float, last_coverage: Optional[np.ndarray] = None
+                  ) -> List[DerailmentResult]:
+    """The cells of a sweep from its lanes' outcomes, lane j the j-th of
+    ``spec``: ``final`` the (L,) final losses ((L, 2) with custody: honest,
+    extracted), ``slashed`` the (L, N) slashed masks and ``last_coverage``
+    the (L,) coverage of each lane's last round (read with custody only);
+    each cell against its (topology, staleness bound, seed)'s baseline
+    lane."""
+    n_honest, has_custody = spec.n_honest, spec.has_custody
+    honest = final[:, 0] if has_custody else final
+    baselines: Dict[Tuple[str, int, int], float] = {}
     cells = []
-    for j, (reg, topo, _, _, _, count, scale, seed, *_) in enumerate(spec.metas):
+    for j, (reg, topo, sb, red, cfrac, count, scale, seed, *_) in enumerate(spec.metas):
         if reg is None:
-            baselines[topo, seed] = float(final[j])
+            baselines[topo, sb, seed] = float(honest[j])
         else:
-            cells.append((j, reg, topo, count, seed))
+            cells.append((j, reg, topo, sb, red, cfrac, count, seed))
     return [DerailmentResult(
         attacker_fraction=count / (n_honest + count) if count else 0.0,
         aggregator=reg.aggregator,
         verified=reg.verification is not None,
-        final_loss=float(final[j]),
-        baseline_loss=baselines[topo, seed],
+        final_loss=float(honest[j]),
+        baseline_loss=baselines[topo, sb, seed],
         attackers_slashed=int(slashed[j, n_honest:n_honest + count].sum()),
         n_attackers=count,
         init_loss=init_loss,
         seed=seed,
         regime=reg.name,
         topology=topo,
-    ) for j, reg, topo, count, seed in cells]
+        staleness_bound=sb,
+        redundancy=red if has_custody else 0,
+        coalition_fraction=cfrac,
+        coalition_coverage=(spec.coalition_coverage(red, cfrac, count)
+                            if has_custody else 1.0),
+        final_coverage=float(last_coverage[j]) if has_custody else 1.0,
+        extracted_loss=float(final[j, 1]) if has_custody else float("nan"),
+    ) for j, reg, topo, sb, red, cfrac, count, seed in cells]
 
 
 # -- economics -------------------------------------------------------------------

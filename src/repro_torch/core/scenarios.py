@@ -3,17 +3,18 @@
 
 A :class:`Scenario` is a factory: it scales to any node count and builds
 the ``(nodes, SwarmConfig)`` pair or a ready-to-run swarm on either engine.
-The eight scenarios of the centralized synchronous round and the three of
-the decentralized round are registered here; the reference's other seven
-need a later axis of the round, and :func:`get_scenario` of one raises
+The eight scenarios of the centralized synchronous round, the three of the
+decentralized round, the two custody scenarios and the three async ones
+are registered here; the reference's two economy scenarios need the
+economy lane, and :func:`get_scenario` of one raises
 ``NotImplementedError`` naming its ROADMAP queue 1 item
 (``WAITING_SCENARIOS``).  :func:`scenario_campaign`
 runs one scenario across seeds as one campaign (``swarm.run_campaign``).
 
 :class:`SweepGrid` names the §5.5 derailment phase-diagram grids that
 ``core.derailment.sweep`` consumes.  Every grid of the reference is
-registered, as data; a grid that sets a field of a later axis (staleness
-bounds 9, custody 7, economy 10) raises that item when it is swept.  The reference's serving grids wait for item 12.
+registered, as data; a grid that sets an economy field (item 10) raises
+that item when it is swept.  The reference's serving grids wait for item 12.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro_torch.core.swarm import (
     run_campaign,
     stack_lanes,
 )
+from repro_torch.core.unextractable import CustodyConfig
 from repro_torch.core.verification import VerificationConfig
 
 
@@ -66,8 +68,6 @@ SCENARIOS: Dict[str, Scenario] = {}
 #: the reference's scenarios that need a later axis of the round -> the
 #: ROADMAP queue 1 item each waits for
 WAITING_SCENARIOS: Dict[str, int] = {
-    "custody_leech": 7, "custody_churn_collapse": 7,
-    "straggler_majority": 9, "stale_poisoning": 9, "async_churn": 9,
     "economy_rational": 10, "economy_sybil_adaptive": 10,
 }
 
@@ -243,6 +243,105 @@ register_scenario(Scenario(
 ))
 
 register_scenario(Scenario(
+    name="custody_leech",
+    description=("Unextractability under attack (§4.1): a 25% leech "
+                 "minority submits zero gradients while doubling as the "
+                 "extraction coalition.  Redundancy-2 custody with a 0.4 "
+                 "per-node bound keeps the coalition below full shard "
+                 "coverage, so the reconstruct-attack eval prices their "
+                 "reassembled model as garbage; the live coverage trace "
+                 "stays at 1.0 (leeches keep relaying custody).  The leech "
+                 "count is ceil(n/4) so it coincides with the coalition "
+                 "tail mask (ceil(0.25 * n)) at every roster size."),
+    make_nodes=lambda n: _mixed_nodes(n, -(-n // 4), "zero", 0.0),
+    make_config=lambda seed: SwarmConfig(
+        aggregator="mean", seed=seed,
+        custody=CustodyConfig(num_shards=16, redundancy=2,
+                              max_fraction=0.4, coalition_fraction=0.25)),
+))
+
+
+def _collapse_nodes(n: int) -> List[NodeSpec]:
+    core = max(2, n // 3)
+    nodes = [NodeSpec(f"core{i}") for i in range(core)]
+    for i in range(n - core):
+        nodes.append(NodeSpec(f"leaver{i}", leave_round=3 + 2 * (i % 4)))
+    return nodes
+
+
+register_scenario(Scenario(
+    name="custody_churn_collapse",
+    description=("Custody-coupled churn (§4.1 x §3 property 3): two thirds "
+                 "of the swarm departs on staggered rounds and never "
+                 "returns, against redundancy-2 custody.  Once every holder "
+                 "of some shard has left, the live coverage "
+                 "(RoundRecord.coverage) collapses below 1.0 — the model "
+                 "is no longer fully held by anyone; the swarm 'degraded' "
+                 "regime of the extractability phase table."),
+    make_nodes=_collapse_nodes,
+    make_config=lambda seed: SwarmConfig(
+        aggregator="mean", seed=seed,
+        custody=CustodyConfig(num_shards=16, redundancy=2, max_fraction=0.5)),
+))
+
+register_scenario(Scenario(
+    name="straggler_majority",
+    description=("Bounded-staleness asynchrony (§3 property 5): two thirds "
+                 "of an honest swarm are stragglers gradienting against "
+                 "parameter snapshots up to 3 rounds old (delay cycles "
+                 "0/3/3, speeds 1x/0.5x/0.5x) under staleness_bound=3, "
+                 "mean aggregation.  The convergence price of *not* "
+                 "waiting for the slow majority — the DOWNPOUR regime."),
+    make_nodes=lambda n: _mixed_nodes(n, 0, "zero", 0.0, speeds=(1.0, 0.5, 0.5),
+                                      delays=(0, 3, 3)),
+    make_config=lambda seed: SwarmConfig(aggregator="mean", staleness_bound=3,
+                                         seed=seed),
+))
+
+register_scenario(Scenario(
+    name="stale_poisoning",
+    description=("Stale Byzantine updates (§3.3 x asynchrony): a 25% "
+                 "sign-flip minority submits maximally stale poisoned "
+                 "gradients (delay=3) while honest nodes run fresh — does "
+                 "CenteredClip's breakdown point survive when the attack "
+                 "rides the staleness the protocol must tolerate?  Audits "
+                 "recompute against the claimed stale snapshot (the delay "
+                 "is part of the claim), so staleness alone never "
+                 "slashes — only corruption does."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, n // 4), "sign_flip", 10.0,
+                                      byz_delay=3),
+    make_config=lambda seed: SwarmConfig(
+        aggregator="centered_clip",
+        verification=VerificationConfig(p_check=0.25, stake=10.0,
+                                        tolerance=1e-3, jackpot=5.0),
+        staleness_bound=3, seed=seed),
+))
+
+
+def _async_churn_nodes(n: int) -> List[NodeSpec]:
+    core = max(2, n // 3)
+    nodes = [NodeSpec(f"core{i}", delay=i % 3) for i in range(core)]
+    for i in range(n - core):
+        join = 1 + (i % 6)
+        nodes.append(NodeSpec(f"churn{i}", join_round=join,
+                              leave_round=join + 8 + (i % 5), delay=1 + (i % 2)))
+    return nodes
+
+
+register_scenario(Scenario(
+    name="async_churn",
+    description=("Asynchrony x elastic membership (§3 properties 3+5): the "
+                 "high_churn_elastic roster with per-node staleness (core "
+                 "delays cycle 0/1/2, transients 1/2) under "
+                 "staleness_bound=2 — late joiners gradient against "
+                 "snapshots taken before they were active, the hardest "
+                 "bookkeeping case for the snapshot ring."),
+    make_nodes=_async_churn_nodes,
+    make_config=lambda seed: SwarmConfig(aggregator="mean", staleness_bound=2,
+                                         seed=seed),
+))
+
+register_scenario(Scenario(
     name="partitioned_swarm",
     description=("Near-partition stress (§5.5): two ring clusters joined "
                  "by a single bridge edge (near-zero spectral gap).  "
@@ -310,14 +409,27 @@ class SweepGrid:
     gossip mixing; the mixing matrix rides on the lane), with honest
     baselines per (topology, seed).  Empty means centralized.
 
+    Non-empty ``redundancies`` / ``coalition_fractions`` add the custody
+    axis (§4.1): every cell is crossed with each (redundancy, coalition
+    fraction) pair, the (N, ``num_shards``) custody matrix (per-node bound
+    ``custody_max_fraction``) and the coalition mask ride on the lane, the
+    round records the live coverage and the eval the reconstruct-attack
+    loss beside the honest one (``SweepResult.extractability_table``).
+    ``custody_leave_fraction > 0`` staggers that fraction of the honest
+    roster out of the run (drawn per seed), what drives redundancy-starved
+    cells into the "degraded" regime.
+
+    A non-empty ``staleness_bounds`` adds the asynchrony axis: every cell
+    is crossed with each bound K, its nodes taking their gradients at
+    snapshots up to K rounds old.  The per-node caps ride on the lane and
+    the ring is sized by the largest bound, so every bound, 0 included,
+    runs in one campaign; honest baselines are per (topology, staleness
+    bound, seed).
+
     Every field of the reference's grid is here, so every grid registers
-    as data.  The fields of the later axes, each the reference's meaning:
-    ``redundancies`` / ``coalition_fractions`` with ``num_shards``,
-    ``custody_max_fraction`` and ``custody_leave_fraction`` (the custody
-    axis; item 7), ``staleness_bounds`` (bounded-staleness rounds; item 9)
-    and ``identity_costs`` / ``fees`` / ``reward_schedules`` / ``adaptive``
-    with the ``econ_*`` knobs (the economy axes; item 10).  A grid that
-    sets one raises its item when it is swept."""
+    as data.  ``identity_costs`` / ``fees`` / ``reward_schedules`` /
+    ``adaptive`` with the ``econ_*`` knobs are the economy axes (item 10):
+    a grid that sets one raises its item when it is swept."""
     name: str
     description: str
     regimes: Tuple[Regime, ...]

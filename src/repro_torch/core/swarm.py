@@ -51,9 +51,28 @@ graphs), read at ``round % T`` (``"cycle"``) or ``min(round, T - 1)``
 aggregator's kernels with that node's mask; the wire stays the decoded
 round trip on both devices.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue 1 item): custody lanes (7), bounded staleness (9), the economy lane
-(10) and a ``MeshPlan`` placement (13).
+**Custody lane** (paper §4.1 meets §5.5): ``SwarmConfig.custody`` (a
+``core.unextractable.CustodyConfig``; ``LaneParams.custody`` /
+``coalition`` on the functional core) carries the (N, S) custody matrix
+through the round as observability only: it never changes the training
+math.  Each round records ``RoundRecord.coverage``, the fraction of shards
+held by at least one active node (the live extraction frontier), computed
+on the device.  A campaign with a custody lane also runs the
+reconstruct-attack eval: the coalition's shards reassembled
+(``masked_reconstruct``) and evaluated beside the honest params, so each
+lane's final loss is an (honest, extracted) pair.
+
+**Bounded-staleness async rounds** (paper §3, heterogeneous nodes): a round
+built with ``staleness_bound=K > 0`` keeps ``SwarmState.ring``, the params
+as of the start of each of the last K+1 rounds (slot ``round % (K+1)``).
+Node i's realized delay is drawn on the host in [0, min(cap_i, round, K)]
+and its gradient is taken at the snapshot that old; the audit recomputes
+against the same snapshot, so staleness alone never slashes.  The round
+never writes into a tensor it was given, so a slot holds its round's param
+dict by reference, with no copy.
+
+The economy lane (ROADMAP queue 1, item 10) and a ``MeshPlan`` placement
+(item 13) raise ``NotImplementedError`` naming their item.
 """
 from __future__ import annotations
 
@@ -68,6 +87,14 @@ import torch
 
 from repro_torch.core import aggregation, compression, gossip, topology
 from repro_torch.core.ledger import Ledger
+from repro_torch.core.unextractable import (
+    CustodyConfig,
+    assign_matrix,
+    coalition_tail_mask,
+    coverage_frac,
+    masked_reconstruct,
+    shards_covered,
+)
 from repro_torch.core.verification import VerificationConfig, audit_flat
 from repro_torch.kernels.masked_agg import ops as masked_agg_ops
 from repro_torch.kernels.qsgd_decode import ops as qsgd_decode_ops
@@ -89,8 +116,21 @@ class NodeSpec:
     byzantine_scale: float = 10.0
     join_round: int = 0
     leave_round: Optional[int] = None
-    #: max gradient staleness — read only by async rounds (not ported yet)
+    #: max gradient staleness (rounds) this node may run behind, read only
+    #: when the config sets ``staleness_bound > 0`` and clamped to it; the
+    #: realized delay of a round is drawn in [0, min(delay, bound, round)].
+    #: None derives it from ``speed`` (:attr:`effective_delay`); an
+    #: explicit value always wins.
     delay: Optional[int] = None
+
+    @property
+    def effective_delay(self) -> int:
+        """The staleness cap async rounds read: ``delay`` when set, else
+        ``ceil(1 / speed) - 1`` (a node at 1/s of the reference speed lags
+        up to s - 1 rounds: speed >= 1 -> 0, 0.5 -> 1, 0.25 -> 3)."""
+        if self.delay is not None:
+            return self.delay
+        return max(int(np.ceil(1.0 / max(self.speed, 1e-9))) - 1, 0)
 
     def active(self, rnd: int) -> bool:
         return self.join_round <= rnd and (self.leave_round is None or rnd < self.leave_round)
@@ -126,24 +166,26 @@ class SwarmConfig:
     #: nodes become isolated self-loops and their replicas freeze.  False
     #: keeps the graph static: every replica mixes on every round.
     churn_coupled: bool = False
-    # the fields below mirror the reference's; non-default values wait for
-    # their slices
-    custody: Optional[Any] = None
+    #: Protocol-Model custody lane (``core.unextractable.CustodyConfig``):
+    #: the (N, S) custody matrix over this roster, traced through the round
+    #: (``RoundRecord.coverage``), and the extraction coalition of the
+    #: reconstruct-attack eval.  None = no custody tracking.  It never
+    #: changes the training math.
+    custody: Optional[CustodyConfig] = None
     #: fused hot path (kernels.masked_agg + kernels.qsgd_decode): None =
     #: auto (see make_round_fn), True = force, False = never.
     fused: Optional[bool] = None
+    #: bounded-staleness async rounds: K > 0 keeps the last K+1 param
+    #: snapshots and lets each node take its gradient at a delayed one
+    #: (``NodeSpec.delay``).  0 is the synchronous round, code path and all.
     staleness_bound: int = 0
+    #: the economy lane; a non-default value waits for its slice
     economy: Optional[Any] = None
 
     def __post_init__(self):
-        waiting = [("custody", self.custody is not None, 7),
-                   ("staleness_bound", self.staleness_bound != 0, 9),
-                   ("economy", self.economy is not None, 10)]
-        for name, set_, item in waiting:
-            if set_:
-                raise NotImplementedError(
-                    f"SwarmConfig.{name} is not ported yet "
-                    f"(ROADMAP queue 1, item {item})")
+        if self.economy is not None:
+            raise NotImplementedError("SwarmConfig.economy is not ported yet "
+                                      "(ROADMAP queue 1, item 10)")
 
 
 def corrupt(kind: str, grad_flat: torch.Tensor, honest_mean: torch.Tensor,
@@ -206,10 +248,17 @@ class LaneParams(NamedTuple):
     ``mixing`` is the decentralized round's doubly-stochastic mixing
     matrix, an (N, N) or (T, N, N) float32 tensor ((L, ...) stacked);
     None means the round is centralized, and every lane of a campaign
-    must agree.  ``custody`` / ``coalition`` (item 7), ``delays`` (item 9)
-    and ``econ`` (item 10) are the reference's later axes: a lane carrying
-    one raises ``NotImplementedError`` naming its ROADMAP queue 1 item
-    wherever the engine meets it."""
+    must agree.
+
+    ``custody`` / ``coalition`` are the custody lane: the (N, S) bool
+    custody matrix and the (N,) bool extraction coalition, on the round's
+    device.  ``delays`` is the bounded-staleness lane: the (N,) int32
+    per-node maximum delays, a CPU tensor (the delays are drawn on the
+    host), read only by rounds built with ``staleness_bound > 0``.  None
+    disables each; all lanes of a campaign agree, as for ``mixing``.
+    ``econ`` (item 10) is the reference's economy axis: a lane carrying it
+    raises ``NotImplementedError`` naming its ROADMAP queue 1 item wherever
+    the engine meets it."""
     codes: torch.Tensor       # (N,) int32 behaviour codes (BEHAVIOUR_CODES)
     scales: torch.Tensor      # (N,) f32 byzantine scales
     speeds: torch.Tensor      # (N,) f32 capacity -> minted shares per kept round
@@ -244,11 +293,12 @@ class LaneParams(NamedTuple):
             numeric_noise=self.numeric_noise[k],
             agg_kwargs={name: v[k] for name, v in self.agg_kwargs.items()},
             agg_id=self.agg_ids[k],
-            mixing=None if self.mixing is None else self.mixing[k])
+            **{f: None if getattr(self, f) is None else getattr(self, f)[k]
+               for f in ("mixing", "custody", "coalition", "delays")})
 
 
 #: the reference's later lane axes -> the ROADMAP queue 1 item each waits for
-_LATER_AXES = (("custody", 7), ("coalition", 7), ("delays", 9), ("econ", 10))
+_LATER_AXES = (("econ", 10),)
 
 
 def _refuse_later_axes(lane: LaneParams) -> None:
@@ -266,6 +316,9 @@ class SwarmState(NamedTuple):
     opt_state: Any
     slashed: torch.Tensor     # (N,) bool — caught by an audit in a prior round
     contrib: torch.Tensor     # (N,) f32 — speed-weighted kept rounds
+    ring: Any = None          # async rounds: a tuple of K+1 param dicts, slot
+                              # r % (K+1) the params as of the start of round r
+                              # (held by reference); None in synchronous rounds
 
 
 class RoundRecord(NamedTuple):
@@ -288,7 +341,12 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
     roster size, drawn with ``cfg.topology_seed`` (not the run seed: reruns
     across seeds keep the graph).  ``cfg.churn_coupled`` expands it to the
     (T, N, N) schedule-coupled stack, T spanning the last membership event
-    (read with ``mixing_schedule="clamp"``, which :class:`Swarm` wires)."""
+    (read with ``mixing_schedule="clamp"``, which :class:`Swarm` wires).
+    ``cfg.custody`` draws the (N, S) custody matrix with ``custody.seed``
+    (run seeds never reshuffle who holds what) and marks the coalition as
+    the last ``ceil(coalition_fraction * N)`` roster slots.
+    ``cfg.staleness_bound > 0`` fills ``delays`` with each node's
+    ``effective_delay`` clamped to the bound."""
     v = cfg.verification
 
     def t(vals, dtype):
@@ -306,6 +364,16 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
             w = topology.churn_coupled_mixing(
                 w, joins, leaves, rounds=(max(events) + 1) if events else 1)
         mixing = torch.from_numpy(w.astype(np.float32)).to(device)
+    custody = coalition = delays = None
+    if cfg.custody is not None:
+        cc = cfg.custody
+        custody = torch.from_numpy(assign_matrix(
+            len(nodes), cc.num_shards, cc.redundancy, cc.seed, cc.max_fraction)).to(device)
+        coalition = torch.from_numpy(
+            coalition_tail_mask(len(nodes), cc.coalition_fraction)).to(device)
+    if cfg.staleness_bound > 0:
+        delays = torch.tensor([min(n.effective_delay, cfg.staleness_bound)
+                               for n in nodes], dtype=torch.int32)
     return LaneParams(
         codes=t([n.behaviour_code for n in nodes], torch.int32),
         scales=t([n.byzantine_scale for n in nodes], torch.float32),
@@ -319,6 +387,9 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
         numeric_noise=float(v.numeric_noise) if v else 0.0,
         agg_kwargs=dict(agg_kwargs or {}),
         mixing=mixing,
+        custody=custody,
+        coalition=coalition,
+        delays=delays,
     )
 
 
@@ -360,7 +431,8 @@ def stack_lanes(lanes: Sequence[LaneParams],
     tensor, and ``agg_id`` an (L,) int32 tensor beside its host copy
     ``agg_ids``.  All lanes must share N and the ``agg_kwargs`` keys, and
     agree on ``mixing``: all None (centralized) or all same-shaped
-    matrices (decentralized)."""
+    matrices (decentralized), and likewise on ``custody`` / ``coalition``
+    (moved to ``device``) and on ``delays`` (stacked on the CPU)."""
     lanes = list(lanes)
     if not lanes:
         raise ValueError("stack_lanes needs at least one lane")
@@ -371,10 +443,12 @@ def stack_lanes(lanes: Sequence[LaneParams],
     keys = set(lanes[0].agg_kwargs)
     if any(set(lane.agg_kwargs) != keys for lane in lanes):
         raise ValueError("every lane of a campaign needs the same agg_kwargs keys")
+    for f in ("mixing", "custody", "coalition", "delays"):
+        if any((getattr(lane, f) is None) != (getattr(lanes[0], f) is None)
+               for lane in lanes):
+            raise ValueError(f"every lane of a campaign must agree on {f} "
+                             "(all None, or all of one shape)")
     decentralized = lanes[0].mixing is not None
-    if any((lane.mixing is not None) != decentralized for lane in lanes):
-        raise ValueError("every lane of a campaign must agree on mixing "
-                         "(all None, or all mixing matrices)")
     first = lanes[0].codes
     dev = torch.device(device) if device is not None else (
         first.device if isinstance(first, torch.Tensor) else torch.device("cpu"))
@@ -398,24 +472,40 @@ def stack_lanes(lanes: Sequence[LaneParams],
         agg_id=torch.tensor(agg_ids, dtype=torch.int32, device=dev),
         agg_ids=agg_ids,
         mixing=(stacked(lane.mixing for lane in lanes).float() if decentralized
-                else None))
+                else None),
+        custody=(None if lanes[0].custody is None
+                 else stacked(lane.custody for lane in lanes).bool()),
+        coalition=(None if lanes[0].coalition is None
+                   else stacked(lane.coalition for lane in lanes).bool()),
+        delays=(None if lanes[0].delays is None else torch.stack(
+            [torch.as_tensor(lane.delays, dtype=torch.int32).cpu() for lane in lanes])))
+
+
+def init_ring(params, staleness_bound: int):
+    """The bounded-staleness snapshot ring: K+1 slots, each ``params`` by
+    reference (every slot starts at the initial params, the snapshot any
+    early delay resolves to).  None when ``staleness_bound`` is 0.  The
+    reference repeats the params K+1 times into one array; the port's
+    round makes new tensors and writes into none it was given, so a slot
+    needs no copy."""
+    if staleness_bound <= 0:
+        return None
+    return (params,) * (staleness_bound + 1)
 
 
 def init_state(params, optimizer, n_nodes: int, *, staleness_bound: int = 0,
                econ=None) -> SwarmState:
-    """The centralized synchronous round's initial state: the params, a
-    fresh optimizer state, no node slashed, nothing minted.  The async ring
-    (item 9) and the economy state (item 10) are not ported yet."""
-    if staleness_bound:
-        raise NotImplementedError("bounded staleness is not ported yet "
-                                  "(ROADMAP queue 1, item 9)")
+    """The centralized round's initial state: the params, a fresh optimizer
+    state, no node slashed, nothing minted, and with ``staleness_bound``
+    the async ring.  The economy state (item 10) is not ported yet."""
     if econ is not None:
         raise NotImplementedError("the economy lane is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
     dev = next(iter(params.values())).device
     return SwarmState(params=params, opt_state=optimizer.init(params),
                       slashed=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
-                      contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev))
+                      contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev),
+                      ring=init_ring(params, staleness_bound))
 
 
 def init_decentralized_state(params, optimizer, n_nodes: int, *,
@@ -423,20 +513,20 @@ def init_decentralized_state(params, optimizer, n_nodes: int, *,
     """Per-node replica state: every node starts from the same ``params``
     with its own optimizer state, each leaf repeated along a new leading
     node axis (the replicas are equal, so each node's ``optimizer.init`` is
-    the first node's).  The async ring (item 9) is not ported yet."""
-    if staleness_bound:
-        raise NotImplementedError("bounded staleness is not ported yet "
-                                  "(ROADMAP queue 1, item 9)")
+    the first node's).  With ``staleness_bound`` the ring's slots hold the
+    replicas."""
 
     def repeat(x):
         return x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.dim())
 
     dev = next(iter(params.values())).device
+    replicas = {k: repeat(v) for k, v in params.items()}
     return SwarmState(
-        params={k: repeat(v) for k, v in params.items()},
+        params=replicas,
         opt_state=tree_map(repeat, optimizer.init(params)),
         slashed=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
-        contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev))
+        contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev),
+        ring=init_ring(replicas, staleness_bound))
 
 
 def consensus_params(params):
@@ -511,7 +601,8 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
                   compression_kwargs: Optional[Dict] = None,
                   verify: bool = False, decentralized: bool = False,
                   mixing_schedule: str = "cycle",
-                  fused: Optional[bool] = None) -> Callable:
+                  fused: Optional[bool] = None,
+                  staleness_bound: int = 0) -> Callable:
     """Build the round: ``round_fn(lane, state, rnd, batches, draws=None)
     -> (state, RoundRecord)``, ``batches`` one batch per node.
 
@@ -546,6 +637,21 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     takes the fused twin where the aggregator has one.  The choice is
     exposed as ``round_fn.fused_by_agg`` (one bool per aggregator of the
     set) and ``round_fn.fused`` (every one fused).
+
+    ``staleness_bound=K > 0`` builds the bounded-staleness async round:
+    ``state.ring`` holds K+1 snapshots (:func:`init_ring`); each round puts
+    the params as of its start in slot ``round % (K+1)``, draws node i's
+    realized delay in [0, min(``lane.delays[i]``, round, K)] on the host
+    (``RoundRandom.delay``) and takes node i's gradient at slot
+    ``(round - delay) % (K+1)`` (a decentralized node at its own replica
+    there).  Everything downstream consumes that gradient stack unchanged,
+    the audit's recomputation included: the validator recomputes against
+    the snapshot the node claims, so staleness alone never slashes.
+    ``RoundRecord.staleness`` is the mean realized delay over the active
+    nodes.  Each node's gradient is taken alone in both rounds, so a
+    zero-delay lane equals the synchronous round bit for bit (in the
+    reference, whose async round batches the gradients differently, it is
+    only close).  ``K = 0`` is the synchronous round's own code path.
     """
     if isinstance(aggregator, str):
         agg_specs = [(aggregator, dict(agg_kwargs or {}))]
@@ -642,12 +748,33 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         fused_qsgd = (compression_kind == "qsgd" and not decentralized
                       and agg_fns[int(lane.agg_id)][2])
 
+        # 0. async rounds: this round's snapshot, then each node's realized
+        # delay and the snapshot it reads
+        ring, snapshot = state.ring, [state.params] * n
+        staleness = torch.zeros((), dtype=torch.float32, device=dev)
+        if staleness_bound > 0:
+            if lane.delays is None:
+                raise ValueError("staleness_bound > 0 needs a LaneParams.delays lane "
+                                 "(lane_for_nodes with SwarmConfig.staleness_bound set)")
+            ring_len = staleness_bound + 1
+            if state.ring is None or len(state.ring) != ring_len:
+                raise ValueError(f"staleness_bound={staleness_bound} needs a SwarmState.ring "
+                                 f"of {ring_len} slots (init_state(..., staleness_bound=))")
+            ring = tuple(state.params if j == rnd % ring_len else slot
+                         for j, slot in enumerate(state.ring))
+            caps = [min(d, rnd, staleness_bound) for d in lane.delays.tolist()]
+            delay = [rr.delay(i, caps[i]) for i in range(n)]
+            snapshot = [ring[(rnd - d) % ring_len] for d in delay]
+            delay_t = torch.tensor(delay, dtype=torch.float32, device=dev)
+            staleness = torch.sum(delay_t * maskf) / torch.clamp(nact, min=1.0)
+
         # 1. per-node gradients -> rows of one (N, D) float32 stack; each
         # node of a decentralized round at its own replica
         gf = torch.empty((n, d_total), dtype=torch.float32, device=dev)
         for i in range(n):
-            params_i = lane_slice(state.params, i) if decentralized else state.params
+            params_i = lane_slice(snapshot[i], i) if decentralized else snapshot[i]
             flatten_into(gf[i], _node_gradient(loss_fn, params_i, batches[i]))
+        del snapshot
 
         # 2. corruption
         honest_mean = None
@@ -734,20 +861,26 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
             else:
                 new_params, new_opt = state.params, state.opt_state
             agg_norm, consensus_err = torch.linalg.vector_norm(agg), zero
+
+        # custody: the live extraction frontier, a shard available while one
+        # of its holders is active (departed or slashed holders drop out)
+        coverage = (zero + 1.0 if lane.custody is None
+                    else coverage_frac(lane.custody, active))
         new_state = SwarmState(
             params=new_params, opt_state=new_opt,
             slashed=state.slashed | caught,
-            contrib=state.contrib + lane.speeds * keep.float())
+            contrib=state.contrib + lane.speeds * keep.float(), ring=ring)
         rec = RoundRecord(
             n_active=torch.sum(active).to(torch.int32),
             n_byzantine=torch.sum(active & (lane.codes > 0)).to(torch.int32),
             caught=caught, keep=keep, agg_norm=agg_norm,
-            consensus_err=consensus_err, coverage=zero + 1.0, staleness=zero)
+            consensus_err=consensus_err, coverage=coverage, staleness=staleness)
         return new_state, rec
 
     round_fn.fused_by_agg = fused_by_agg      # resolved choice, inspectable
     round_fn.fused = all(fused_by_agg)
     round_fn.stack_bytes = stack_bytes
+    round_fn.staleness_bound = staleness_bound
     return round_fn
 
 
@@ -761,9 +894,10 @@ def scan_rounds(round_fn: Callable, lane: LaneParams, state: SwarmState,
     stacked); the round reads what ``Swarm.step``'s does (ROADMAP queue
     1, item 3b).
     Returns ``(state, RoundRecord, final_loss)``: every record leaf stacked
-    (T, ...), ``final_loss`` a 0-d float32 tensor of ``eval_fn(params)`` on
-    the final params, computed under ``torch.no_grad()`` (0 without an
-    ``eval_fn``)."""
+    (T, ...), ``final_loss`` a float32 tensor of ``eval_fn(params)`` on the
+    final params (0-d for a single loss; a campaign's custody eval gives an
+    (honest, extracted) pair), computed under ``torch.no_grad()`` (0
+    without an ``eval_fn``)."""
     _refuse_later_axes(lane)
     if rounds < 1:
         raise ValueError(f"scan_rounds needs rounds >= 1, got {rounds}")
@@ -778,7 +912,9 @@ def scan_rounds(round_fn: Callable, lane: LaneParams, state: SwarmState,
     else:
         with torch.no_grad():
             final = torch.as_tensor(eval_fn(state.params), dtype=torch.float32,
-                                    device=dev).reshape(())
+                                    device=dev)
+        if final.numel() == 1:
+            final = final.reshape(())
     return state, stack_trees(recs), final
 
 
@@ -786,20 +922,17 @@ def make_scan_program(round_fn: Callable, batch_fn: Callable, rounds: int,
                       eval_fn: Optional[Callable] = None) -> Callable:
     """The scanned run as a function: ``run(lane, params, opt_state,
     slashed, contrib, ring=None, econ=None) -> (SwarmState, RoundRecord,
-    final_loss)``.  The reference donates the carries to XLA; here nothing
-    is donated or needs to be: the round is functional, so the engine never
-    writes into the caller's ``params`` or ``opt_state`` and makes its own
-    new carries each round.  ``ring`` (item 9) and ``econ`` (item 10) are
-    not ported yet."""
+    final_loss)``, ``ring`` the async round's (:func:`init_ring`).  The
+    reference donates the carries to XLA; here nothing is donated or needs
+    to be: the round is functional, so the engine never writes into the
+    caller's ``params``, ``opt_state`` or ``ring`` and makes its own new
+    carries each round.  ``econ`` (item 10) is not ported yet."""
     def run(lane: LaneParams, params, opt_state, slashed, contrib, ring=None, econ=None):
-        if ring is not None:
-            raise NotImplementedError("the staleness ring is not ported yet "
-                                      "(ROADMAP queue 1, item 9)")
         if econ is not None:
             raise NotImplementedError("the economy state is not ported yet "
                                       "(ROADMAP queue 1, item 10)")
         state = SwarmState(params=params, opt_state=opt_state, slashed=slashed,
-                           contrib=contrib)
+                           contrib=contrib, ring=ring)
         return scan_rounds(round_fn, lane, state, rounds, batch_fn, eval_fn)
     return run
 
@@ -829,7 +962,14 @@ def run_campaign(loss_fn: Callable, params0, optimizer, data_fn: Callable,
     :func:`init_decentralized_state`, a 3-D stack is read at ``round % T``
     (a time-varying schedule; a churn-coupled stack is :class:`Swarm`'s,
     which reads it clamped), and ``eval_fn`` sees the lane's consensus
-    (node-mean) params.  This
+    (node-mean) params.  Async mode is read from ``lanes.delays``: the
+    ring is sized by the largest cap over the lanes (a campaign of
+    all-zero caps runs the synchronous round), each lane's own caps
+    bounding its delays.  Custody mode is read from ``lanes.custody``:
+    every round records the live coverage, and the eval also runs the
+    reconstruct-attack, so each lane's final loss is the pair (honest,
+    extracted), the loss of the model reassembled from exactly the shards
+    the lane's coalition holds (final losses (L, 2)).  This
     first cut loops over the lanes on the host, each lane
     :func:`scan_rounds` from a fresh initial state; lane k equals the
     single-run :class:`Swarm` of the same roster and config bit for bit.  ``draws_fn(k, rnd)`` hands lane k
@@ -841,11 +981,11 @@ def run_campaign(loss_fn: Callable, params0, optimizer, data_fn: Callable,
     its item.
 
     Returns ``(SwarmState, RoundRecord, final losses)`` with a leading L
-    axis on every leaf: records (L, T, ...), final losses (L,).
-    ``keep_params=False`` drops each lane's params and optimizer state as
-    the lane ends (the returned state holds None for both): a sweep reads
-    only ``slashed``, ``contrib`` and the final losses, and then holds one
-    lane's model state at a time.
+    axis on every leaf: records (L, T, ...), final losses (L,) or (L, 2).
+    ``keep_params=False`` drops each lane's params, optimizer state and
+    ring as the lane ends (the returned state holds None for them): a
+    sweep reads only ``slashed``, ``contrib``, the records and the final
+    losses, and then holds one lane's model state at a time.
     """
     program = make_campaign_program(
         loss_fn, params0, optimizer, data_fn, lanes, rounds=rounds,
@@ -870,8 +1010,8 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
                           keep_params: bool = True) -> Callable:
     """Build (without running) the campaign that :func:`run_campaign`
     runs: ``fn(lanes) -> (SwarmState, RoundRecord, final losses)``.
-    ``lanes`` is read for its structure only (N, decentralized or not, the
-    later axes).  The
+    ``lanes`` is read for its structure only (N, decentralized or not,
+    custody or not, the ring's size, the later axes).  The
     resolved fused choice is ``fn.fused`` and ``fn.fused_by_agg``.
 
     Each lane's outputs are copied into preallocated (L, ...) tensors as
@@ -885,17 +1025,25 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
     _refuse_later_axes(lanes)
     n = int(lanes.codes.shape[-1])
     decentralized = lanes.mixing is not None
+    has_custody = lanes.custody is not None
+    staleness_bound = int(lanes.delays.max()) if lanes.delays is not None else 0
     round_fn = make_round_fn(
         loss_fn, optimizer, params0, n, aggregator=aggregator,
         agg_kwargs=agg_kwargs, compression_kind=compression_kind,
         compression_kwargs=compression_kwargs, verify=verify,
-        decentralized=decentralized, fused=fused)
+        decentralized=decentralized, fused=fused, staleness_bound=staleness_bound)
     init = init_decentralized_state if decentralized else init_state
-    lane_eval = eval_fn
-    if decentralized and eval_fn is not None:
-        def lane_eval(params):
-            # decentralized lanes evaluate the consensus (mean) replica
-            return eval_fn(consensus_params(params))
+
+    def lane_eval(lane: LaneParams, params):
+        # decentralized lanes evaluate the consensus (mean) replica
+        pe = consensus_params(params) if decentralized else params
+        if not has_custody:
+            return eval_fn(pe)
+        # the reconstruct-attack eval: exactly the shards the coalition
+        # holds, the rest zero-filled
+        covered = shards_covered(lane.custody, lane.coalition)
+        return torch.stack([torch.as_tensor(eval_fn(p), dtype=torch.float32).reshape(())
+                            for p in (pe, masked_reconstruct(pe, covered))])
 
     def program(lanes: LaneParams):
         batches: Dict[int, list] = {}
@@ -908,12 +1056,15 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
 
         out = None
         for k in range(lanes.n_lanes):
-            run = scan_rounds(round_fn, lanes.lane(k), init(params0, optimizer, n),
-                              rounds, batch_fn, lane_eval,
+            lane = lanes.lane(k)
+            run = scan_rounds(round_fn, lane,
+                              init(params0, optimizer, n, staleness_bound=staleness_bound),
+                              rounds, batch_fn,
+                              None if eval_fn is None else functools.partial(lane_eval, lane),
                               draws_fn=None if draws_fn is None
                               else functools.partial(draws_fn, k))
             if not keep_params:
-                run = (run[0]._replace(params=None, opt_state=None), *run[1:])
+                run = (run[0]._replace(params=None, opt_state=None, ring=None), *run[1:])
             if out is None:
                 out = tree_map(lambda x: x.new_empty((lanes.n_lanes, *x.shape)), run)
             tree_map(lambda o, x: o[k].copy_(x), out, run)
@@ -994,12 +1145,28 @@ class _SwarmBase:
         self.slashed: Set[str] = set()
         self.history: List[dict] = []
         self.device = next(iter(params.values())).device
+        #: the host copy of the custody matrix (None without a custody
+        #: lane): who holds what, for callers to inspect after a run
+        self.custody_matrix: Optional[np.ndarray] = (
+            assign_matrix(len(self.nodes), cfg.custody.num_shards,
+                          cfg.custody.redundancy, cfg.custody.seed,
+                          cfg.custody.max_fraction)
+            if cfg.custody is not None else None)
         if cfg.verification:
             for node in self.nodes:
                 self.ledger.stake(node.node_id, cfg.verification.stake)
 
     def step(self, rnd: int, draws: Optional[RoundDraws] = None) -> dict:
         raise NotImplementedError
+
+    def _coverage_of(self, active_idxs: Sequence[int]) -> float:
+        """The live shard coverage of the given active node indices, in
+        float64 on the host (1.0 without a custody lane)."""
+        if self.custody_matrix is None:
+            return 1.0
+        if not len(active_idxs):
+            return 0.0
+        return float(self.custody_matrix[list(active_idxs)].any(0).mean())
 
     def _slash(self, node: NodeSpec) -> None:
         self.ledger.slash(node.node_id)
@@ -1037,6 +1204,9 @@ class Swarm(_SwarmBase):
     ``opt_state`` become per-node replicas and optimizer states (leading N
     axis), history rows carry a nonzero ``consensus_error``, and
     :meth:`eval_params` returns the consensus (node-mean) replica.
+    ``cfg.staleness_bound`` runs the async round, the engine carrying its
+    snapshot ring from step to step (rounds then step from 0 in order);
+    ``cfg.custody`` records the coverage each round.
     """
 
     def __init__(self, loss_fn: Callable, params, optimizer,
@@ -1062,11 +1232,14 @@ class Swarm(_SwarmBase):
             verify=cfg.verification is not None,
             decentralized=self._decentralized,
             mixing_schedule="clamp" if cfg.churn_coupled else "cycle",
-            fused=cfg.fused)
+            fused=cfg.fused, staleness_bound=cfg.staleness_bound)
         if self._decentralized:
             # per-node replicas and optimizer states from round 0
             init = init_decentralized_state(self.params, optimizer, n)
             self.params, self.opt_state = init.params, init.opt_state
+        #: the async round's snapshot ring (None when synchronous), engine
+        #: state like params and opt_state, advanced by every round
+        self._ring = init_ring(self.params, cfg.staleness_bound)
 
     @property
     def fused(self) -> bool:
@@ -1076,7 +1249,7 @@ class Swarm(_SwarmBase):
         return SwarmState(
             params=self.params, opt_state=self.opt_state,
             slashed=torch.as_tensor(self._slashed_np, device=self.device),
-            contrib=self.contrib)
+            contrib=self.contrib, ring=self._ring)
 
     def step(self, rnd: int, draws: Optional[RoundDraws] = None) -> dict:
         active_np = ((self._joins_np <= rnd) & (rnd < self._leaves_np)
@@ -1086,7 +1259,7 @@ class Swarm(_SwarmBase):
         batches = [self.data_fn(i, rnd) for i in range(len(self.nodes))]
         state, rec = self._core(self._lane, self._state(), rnd, batches, draws)
         self.params, self.opt_state = state.params, state.opt_state
-        self.contrib = state.contrib
+        self.contrib, self._ring = state.contrib, state.ring
         row = history_from_records([rec], [n.node_id for n in self.nodes],
                                    start_round=rnd)[0]
         for i in np.flatnonzero(rec.caught.cpu().numpy()):
@@ -1113,9 +1286,13 @@ class SequentialSwarm(_SwarmBase):
     draw, then the dense aggregator of ``core.aggregation`` over the
     compacted (k, D) stack of the survivors.  The draws are the batched
     engine's: the same ``(seed, purpose, round, node)`` generators, or the
-    caller's ``draws``.  Bounded staleness and the other axes that
-    ``SwarmConfig`` refuses wait for their items there.  It is
-    centralized-only, as the reference's: a topology raises ``ValueError``.
+    caller's ``draws``.  Bounded staleness (``cfg.staleness_bound > 0``)
+    keeps a dict of the last K+1 param snapshots, each node's delay drawn
+    on the host from the same schedule as the batched engine's (rounds
+    then step from 0 in order; ``run`` does), and the audit recomputes at
+    the node's snapshot.  A custody lane's coverage is the float64 mean of
+    the host custody matrix, as in the reference.  It is centralized-only,
+    as the reference's: a topology raises ``ValueError``.
     """
 
     def __init__(self, loss_fn: Callable, params, optimizer,
@@ -1134,10 +1311,11 @@ class SequentialSwarm(_SwarmBase):
         self._draw = compression.wire_draw(cfg.compression, self._d,
                                            **cfg.compression_kwargs)
         self._aggregate = aggregation.get_aggregator(cfg.aggregator, **cfg.agg_kwargs)
+        self._snapshots: Dict[int, Any] = {}     # round -> params (async only)
 
-    def _gradient(self, batch) -> torch.Tensor:
+    def _gradient(self, params, batch) -> torch.Tensor:
         g = torch.empty(self._d, dtype=torch.float32, device=self.device)
-        flatten_into(g, _node_gradient(self.loss_fn, self.params, batch))
+        flatten_into(g, _node_gradient(self.loss_fn, params, batch))
         return g
 
     def _wire(self, g: torch.Tensor, rr: RoundRandom, node: int) -> torch.Tensor:
@@ -1151,8 +1329,19 @@ class SequentialSwarm(_SwarmBase):
         if not active:
             raise RuntimeError(f"round {rnd}: no active nodes")
         rr = RoundRandom(cfg.seed, rnd, dev, draws)
+        K = cfg.staleness_bound
+        delays = [0] * len(active)
+        snapshots = [self.params] * len(active)
+        if K > 0:
+            # the ring's readable twin: this round's params, and the last K
+            # rounds'; a node drawing delay d reads round rnd - d's
+            self._snapshots[rnd] = self.params
+            for old in [r for r in self._snapshots if r < rnd - K]:
+                del self._snapshots[old]
+            delays = [rr.delay(i, min(node.effective_delay, K, rnd)) for i, node in active]
+            snapshots = [self._snapshots[rnd - d] for d in delays]
         batches = [self.data_fn(i, rnd) for i, _ in active]
-        grads = [self._gradient(b) for b in batches]
+        grads = [self._gradient(p, b) for p, b in zip(snapshots, batches)]
 
         # corruption and the wire; the honest mean is the batched engine's
         # masked sum, added in node order, over the active count
@@ -1179,7 +1368,9 @@ class SequentialSwarm(_SwarmBase):
             for j, (i, node) in enumerate(active):
                 if not bool(rr.audit_sel(i) < v.p_check):
                     continue
-                recomputed = self._wire(self._gradient(batches[j]), rr, i)
+                # at the node's own (possibly stale) snapshot: the delay is
+                # part of its claim, so staleness alone never slashes
+                recomputed = self._wire(self._gradient(snapshots[j], batches[j]), rr, i)
                 ok, _ = audit_flat(submitted[j], recomputed, rr.audit_noise(i, self._d), v)
                 if not bool(ok):
                     self._slash(node)
@@ -1210,8 +1401,9 @@ class SequentialSwarm(_SwarmBase):
             "caught": caught,
             "agg_norm": float(torch.linalg.vector_norm(agg)),
             "consensus_error": 0.0,
-            "coverage": 1.0,
-            "staleness": 0.0,
+            "coverage": self._coverage_of([i for i, _ in active]),
+            # a float32 division, as the batched engine's record
+            "staleness": float(np.float32(sum(delays)) / np.float32(max(len(active), 1))),
         }
         self.history.append(rec)
         return rec

@@ -13,14 +13,17 @@ Protocol Model server needs (twin of ``repro/core/unextractable.py``).
 - :func:`shard_params` / :func:`reconstruct_params` cut a param dict into
   flat float32 chunks in the reference's leaf order and reassemble it;
   missing shards come back as zeros;
+- :func:`masked_reconstruct` zeroes the shards a coverage mask leaves out,
+  in place of ``shard_params -> reconstruct_params``: the campaign's
+  reconstruct-attack eval;
+- :class:`CustodyConfig` and :func:`coalition_tail_mask`, the custody lane
+  of a swarm run (``SwarmConfig.custody``);
 - the economic comparison cost(acquire missing shards) vs cost(retrain).
-
-``masked_reconstruct``, ``CustodyConfig`` and ``coalition_tail_mask`` wait
-for the custody axis of the round (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
 import itertools
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Sequence, Set, Tuple
 
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.convert import Layout, flatten_into, unflatten
+from repro_torch.models.convert import Layout, flatten_into, layout_of, unflatten
 
 
 # ============================ assignment =======================================
@@ -211,6 +214,53 @@ def reconstruct_params(shards: Mapping[int, torch.Tensor], layout: Layout,
     # clone the float32 leaves too, so no leaf holds on to the flat vector
     return {k: t.clone() if t.dtype == torch.float32 else t
             for k, t in unflatten(flat[:true_size], layout).items()}
+
+
+def masked_reconstruct(params: Mapping[str, torch.Tensor],
+                       covered: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Zero the shards that the (S,) bool mask ``covered`` leaves out of a
+    param dict, keeping its names, shapes and dtypes: the chunking of
+    :func:`shard_params` (the float32 concat in flat order, zero-padded to a
+    multiple of S, shard s the s-th contiguous chunk), each chunk multiplied
+    by its mask bit as the reference does (so a left-out -x reads -0.0),
+    cast back leaf by leaf.  At full coverage it is the identity, bfloat16
+    leaves included (bf16 -> f32 -> bf16 keeps the value).  One padded
+    float32 vector of the whole model is alive while it runs; the float32
+    leaves are views of it."""
+    num_shards = covered.shape[-1]
+    size = sum(t.numel() for t in params.values())
+    flat = torch.zeros(size + (-size) % num_shards, dtype=torch.float32,
+                       device=next(iter(params.values())).device)
+    flatten_into(flat[:size], params)
+    flat.view(num_shards, -1).mul_(covered.to(flat.device)[:, None])
+    return unflatten(flat[:size], layout_of(params))
+
+
+# ======================= swarm-lane custody config =============================
+@dataclass(frozen=True)
+class CustodyConfig:
+    """The custody lane of a swarm run (``SwarmConfig.custody``).
+
+    ``coalition_fraction`` marks the extraction coalition as the last
+    ``ceil(fraction * N)`` roster slots, the tail where the scenario and
+    sweep rosters put their attackers, so the Byzantine minority doubles
+    as the extraction coalition.  ``seed`` draws the custody matrix and is
+    apart from the run seed: run seeds vary noise and churn, never who
+    holds what (the ``topology_seed`` convention)."""
+    num_shards: int = 16
+    redundancy: int = 2
+    seed: int = 0
+    max_fraction: float = 0.5
+    coalition_fraction: float = 0.0
+
+
+def coalition_tail_mask(n_nodes: int, fraction: float) -> np.ndarray:
+    """(N,) bool marking the last ``ceil(fraction * n_nodes)`` roster slots."""
+    k = min(n_nodes, int(math.ceil(fraction * n_nodes)))
+    mask = np.zeros(n_nodes, bool)
+    if k:
+        mask[n_nodes - k:] = True
+    return mask
 
 
 # -- economics (the definition's inequality) ------------------------------------

@@ -7,6 +7,8 @@ twin of ``examples/swarm_byzantine_training.py``.
     python -m repro_torch.launch.swarm --full --engine sequential   # per-node engine
     python -m repro_torch.launch.swarm --full --scenario byzantine_neighborhood \
         --nodes 10 --rounds 2                          # any registered scenario
+    python -m repro_torch.launch.swarm --full --scenario stale_poisoning \
+        --rounds 4                                     # the async round
 
 The "showcase" roster exercises the five §3 properties and the §4
 incentives at once: 10 heterogeneous nodes (speeds 0.5-3x, two join late,
@@ -20,22 +22,31 @@ as the reference example's ``--engine`` does.  ``--scenario`` runs any
 registered scenario instead (``core.scenarios``) at ``--nodes`` nodes,
 the decentralized ones (``gossip_ring_honest``, ``byzantine_neighborhood``,
 ``partitioned_swarm``) on per-node replicas, whose consensus (node-mean)
-replica is what the loss column evaluates.  The reference ends with a
-custody-sharded checkpoint; that waits for the custody slice (ROADMAP
-queue 1, item 7) and is skipped here.
+replica is what the loss column evaluates; the async ones
+(``straggler_majority``, ``stale_poisoning``, ``async_churn``) on the
+bounded-staleness round, the custody ones (``custody_leech``,
+``custody_churn_collapse``) with their coverage trace.  As the reference,
+it ends with a custody-sharded checkpoint of the trained params (the
+consensus replica of a decentralized run) in ``--ckpt``: 16 shards,
+redundancy 2, no holder over 40% of the model, over the nodes not
+slashed; then a restore by two holders, which the custody refuses.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core.scenarios import get_scenario, list_scenarios
 from repro_torch.core.swarm import ENGINES, NodeSpec, SwarmConfig, make_swarm
+from repro_torch.core.unextractable import ShardCustody
 from repro_torch.core.verification import VerificationConfig
 from repro_torch.data.pipeline import DataConfig, data_fn_for_swarm, model_batch
 from repro_torch.device import DeviceLike, resolve_device
@@ -144,6 +155,26 @@ def report_ledger(swarm, out: Callable[[str], None] = print) -> None:
         raise RuntimeError("ledger does not conserve value")
 
 
+def custody_checkpoint(swarm, path: str, out: Callable[[str], None] = print) -> ShardCustody:
+    """§4.1: write the trained params as a custody-sharded checkpoint that
+    no single node holds all of (16 shards, redundancy 2, no node over 40%
+    of the model, over the nodes not slashed), then show that two holders
+    cannot restore it.  Returns the custody."""
+    holders = [n.node_id for n in swarm.nodes if n.node_id not in swarm.slashed]
+    custody = ShardCustody.assign(holders, num_shards=16, redundancy=2, max_fraction=0.4)
+    ckpt.save_custody(path, swarm.eval_params(), custody)
+    out(f"\ncustody checkpoint -> {path}")
+    out(f"  min extraction coalition: {custody.min_extraction_coalition()} "
+        f"of {len(holders)} nodes")
+    try:
+        ckpt.restore_custody(path, swarm.eval_params(), holders=holders[:2])
+    except PermissionError as e:
+        out(f"  partial-coalition restore correctly refused: {e}")
+    else:
+        raise RuntimeError("a partial coalition restored the checkpoint")
+    return custody
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=200)
@@ -159,6 +190,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--nodes", type=int, default=None,
                     help="swarm size of a registered --scenario (default 10); "
                          "the showcase's roster is fixed")
+    ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(),
+                                                   "repro_torch_swarm_custody_ckpt"),
+                    help="directory of the custody-sharded checkpoint")
     args = ap.parse_args(argv)
     if args.scenario == "showcase" and args.nodes is not None:
         ap.error("--nodes sizes a registered --scenario; the showcase runs its "
@@ -183,8 +217,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print(f"\ntrained {args.rounds} rounds in {dt:.0f}s "
           f"({args.rounds / max(dt, 1e-9):.2f} rounds/s{fused})")
     report_ledger(swarm)
+    t0 = time.time()
+    custody = custody_checkpoint(swarm, args.ckpt)
+    ckpt_s = time.time() - t0
     return {"swarm": swarm, "problem": problem, "losses": losses,
-            "seconds": dt, "rounds": args.rounds, "nodes": nodes}
+            "seconds": dt, "rounds": args.rounds, "nodes": nodes,
+            "ckpt": args.ckpt, "custody": custody, "ckpt_seconds": ckpt_s}
 
 
 if __name__ == "__main__":

@@ -12,6 +12,12 @@ round draws ~1.6e9 wire uniforms and as many audit normals.
 Because the bits differ from JAX's, a round also accepts its draws from the
 caller as a :class:`RoundDraws`: the tests hand the port the reference's own
 draws and compare whole rounds exactly.
+
+The async round's per-node delays are drawn on the host, from a CPU
+generator, whatever device the round runs on: they are N small integers
+that pick host-side control flow (which snapshot each node's gradient
+reads), so drawn there they cost the round no device read, and a round on
+the card draws the same delays as one on the CPU.
 """
 from __future__ import annotations
 
@@ -20,9 +26,9 @@ from typing import Optional, Sequence
 
 import torch
 
-# purposes, as at repro/core/swarm.py:123 (the async _DELAY purpose waits
-# for the async slice); _DATA and _INIT key the data pipeline and model init
-_CORRUPT, _WIRE, _AUDIT_SEL, _AUDIT_NOISE = range(4)
+# purposes, as at repro/core/swarm.py:123; _DATA and _INIT key the data
+# pipeline and model init
+_CORRUPT, _WIRE, _AUDIT_SEL, _AUDIT_NOISE, _DELAY = range(5)
 _DATA, _INIT = 100, 101
 
 _M64 = (1 << 64) - 1
@@ -63,7 +69,9 @@ class RoundDraws:
     - ``audit_sel``: (N,) uniforms, node ``i`` is audited iff below p_check;
     - ``audit_noise``: (N, D) standard normals, the simulated cross-stack
       numeric spread added to the auditor's recomputation;
-    - ``corrupt``: (N, D) standard normals for ``noise`` attackers.
+    - ``corrupt``: (N, D) standard normals for ``noise`` attackers;
+    - ``delay``: (N,) integers, the async round's realized delays (node
+      ``i``'s in [0, its cap]).
 
     A field the round needs must be present; one it does not need may be
     None.
@@ -73,6 +81,7 @@ class RoundDraws:
     audit_sel: Optional[torch.Tensor] = None
     audit_noise: Optional[torch.Tensor] = None
     corrupt: Optional[torch.Tensor] = None
+    delay: Optional[torch.Tensor] = None
 
 
 class RoundRandom:
@@ -123,3 +132,21 @@ class RoundRandom:
 
     def corrupt(self, node: int, d: int) -> torch.Tensor:
         return self.normal("corrupt", _CORRUPT, node, (d,))
+
+    def delay(self, node: int, cap: int) -> int:
+        """Node ``node``'s realized delay, an integer in [0, ``cap``], keyed
+        by ``(seed, _DELAY, round, node)`` and drawn by a CPU generator (the
+        module docstring).  A cap of 0 draws nothing: the delay is 0."""
+        if cap <= 0:
+            return 0
+        if self.draws is not None:
+            if self.draws.delay is None:
+                raise ValueError("RoundDraws.delay is needed by this round "
+                                 "but was not given")
+            d = int(self.draws.delay[node])
+            if not 0 <= d <= cap:
+                raise ValueError(f"RoundDraws.delay[{node}] = {d} is outside "
+                                 f"[0, {cap}]")
+            return d
+        g = generator(self.seed, _DELAY, self.rnd, node, device=torch.device("cpu"))
+        return int(torch.randint(0, cap + 1, (), generator=g))

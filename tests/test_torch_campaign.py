@@ -370,14 +370,29 @@ def test_unported_campaign_options_raise(problem):
         tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, lanes, plan=object(), **kw)
     with pytest.raises(ValueError, match="agree on mixing"):
         tswarm.stack_lanes([single, single._replace(mixing=torch.eye(2))])
-    for field, item in (("custody", 7), ("coalition", 7), ("delays", 9), ("econ", 10)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tswarm.stack_lanes([single._replace(**{field: torch.ones(2)})])
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn,
-                                lanes._replace(**{field: torch.ones(1, 2)}), **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tswarm.init_state(params0, _sgd(topt), 2, staleness_bound=2)
+    # the custody (item 7) and async (item 9) lanes stack and run; the
+    # economy lane (item 10) raises
+    later = {"custody": torch.ones(2, 3, dtype=torch.bool),
+             "coalition": torch.tensor([False, True]),
+             "delays": torch.tensor([0, 2], dtype=torch.int32)}
+    for field, value in later.items():
+        with pytest.raises(ValueError, match=f"agree on {field}"):
+            tswarm.stack_lanes([single, single._replace(**{field: value})])
+    stacked = tswarm.stack_lanes([single._replace(**later)] * 2)
+    assert stacked.lane(1).delays.tolist() == [0, 2]
+    assert stacked.custody.shape == (2, 2, 3) and stacked.coalition.shape == (2, 2)
+    _, recs, final = tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, stacked,
+                                         eval_fn=problem[1][3], **kw)
+    assert final.shape == (2, 2) and (recs.coverage == 1.0).all()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tswarm.stack_lanes([single._replace(econ=torch.ones(2))])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn,
+                            lanes._replace(econ=torch.ones(1, 2)), **kw)
+    state = tswarm.init_state(params0, _sgd(topt), 2, staleness_bound=2)
+    assert len(state.ring) == 3 and all(slot is params0 for slot in state.ring)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tswarm.init_state(params0, _sgd(topt), 2, econ=object())
     with pytest.raises(ValueError, match="stacked campaign"):
         tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, single, **kw)
     # the reference's XLA option is accepted and changes nothing

@@ -12,8 +12,8 @@
 - each sweep lane equals the port's own ``simulate_derailment``, on both
   engines;
 - ``attack_cost`` and ``no_off_report`` render the reference's strings;
-- the later axes, the unported scenarios and ``plan`` raise their items;
-  the topology grids (item 8, ported) build and sweep.
+- the economy axes, its scenarios and ``plan`` raise their items; the
+  topology (item 8), custody (7) and staleness (9) grids build and sweep.
 """
 import importlib.util
 from pathlib import Path
@@ -34,10 +34,11 @@ from repro_torch.launch import problems
 
 ROOT = Path(__file__).resolve().parents[1]
 # the grids of the reference's later axes -> the ROADMAP queue 1 item each
-# waits for; None: the axis is ported (topologies, item 8) and the grid builds
-LATER_GRIDS = {"no_off_topology_smoke": None, "no_off_topology": None, "no_off_async_smoke": 9,
-               "no_off_async": 9, "custody_smoke": 7, "custody_frontier": 7,
-               "no_off_economy_smoke": 10, "no_off_economy": 10}
+# waits for; None: the axis is ported (topologies item 8, custody 7,
+# staleness 9) and the grid builds
+LATER_GRIDS = {"no_off_topology_smoke": None, "no_off_topology": None,
+               "no_off_async_smoke": None, "no_off_async": None, "custody_smoke": None,
+               "custody_frontier": None, "no_off_economy_smoke": 10, "no_off_economy": 10}
 
 
 def _examples_common():
@@ -230,18 +231,31 @@ def test_attack_cost_and_report_render_as_the_reference():
 
 @pytest.mark.parametrize("grid", sorted(LATER_GRIDS))
 def test_later_axis_grids_raise_their_item(quadratic, grid):
-    """A grid of a waiting axis raises its item; a topology grid (item 8,
-    ported) builds its lanes, one mixing matrix a topology, and sweeps."""
+    """A grid of a waiting axis raises its item; a grid of a ported axis
+    builds its lanes (one mixing matrix a topology, one set of delay caps a
+    staleness bound, one custody matrix and coalition a custody cell) and
+    sweeps."""
     tl, tp, td, te, to = quadratic[1]
     g = tscen.get_sweep_grid(grid)
     if LATER_GRIDS[grid] is None:
         spec = tder.build_sweep_lanes(g)
         assert len(spec.lanes) == g.n_lanes
-        assert {m[1] for m in spec.metas} == set(g.topologies)
-        assert all(lane.mixing.shape == (spec.n_total, spec.n_total) for lane in spec.lanes)
+        n = spec.n_total
+        assert {m[1] for m in spec.metas} == set(g.topologies or ("",))
+        assert {m[2] for m in spec.metas} == set(g.staleness_bounds or (0,))
+        for lane in spec.lanes:
+            assert (lane.mixing is None) == (not g.topologies)
+            assert lane.mixing is None or lane.mixing.shape == (n, n)
+            assert (lane.delays is None) == (not g.staleness_bounds)
+            assert lane.delays is None or lane.delays.max() in g.staleness_bounds
+            assert (lane.custody is None) == (not g.has_custody)
+            assert lane.custody is None or lane.custody.shape == (n, g.num_shards)
         res = tder.sweep(tl, tp, to, td, te, g, rounds=1)
-        assert {r.topology for r in res.results} == set(g.topologies)
+        assert {r.topology for r in res.results} == set(g.topologies or ("",))
+        assert {r.staleness_bound for r in res.results} == set(g.staleness_bounds or (0,))
+        assert {r.redundancy for r in res.results} == set(g.redundancies or (0,))
         assert all(np.isfinite(r.final_loss) for r in res.results)
+        assert all(np.isfinite(r.extracted_loss) == g.has_custody for r in res.results)
         return
     with pytest.raises(NotImplementedError, match=f"item {LATER_GRIDS[grid]}"):
         tder.build_sweep_lanes(g)
@@ -263,15 +277,20 @@ def test_unported_scenarios_and_options_raise(quadratic):
     with pytest.raises(NotImplementedError, match="item 13"):
         tder.sweep(tl, tp, to, td, te, grid, plan=object())
     res = tder.SweepResult(grid=grid, results=[], n_programs=1, n_runs=0, wall_s=1.0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        res.extractability_table()
+    assert res.extractability_table() == "(no custody axis in this sweep)"
     with pytest.raises(NotImplementedError, match="item 10"):
         res.economy_phase_table("mean")
     with pytest.raises(NotImplementedError, match="item 10"):
         res.economy_adaptive_gap()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tder.simulate_derailment(tl, tp, to, td, te, n_honest=2, n_attack=1, rounds=1,
-                                 staleness_bound=2)
+    # the async point (item 9) runs, its baseline at the same bound
+    (jl, jp, jd, je, jo) = quadratic[0]
+    kw = dict(n_honest=3, n_attack=1, rounds=4, aggregator="mean", staleness_bound=2)
+    res, sw = tder.simulate_derailment(tl, tp, to, td, te, return_swarm=True, **kw)
+    assert res.staleness_bound == 2 and sw.cfg.staleness_bound == 2
+    assert all(n.delay == 2 for n in sw.nodes) and sw.history[-1]["staleness"] >= 0
+    assert np.isfinite(res.final_loss) and np.isfinite(res.baseline_loss)
+    jres = jder.simulate_derailment(jl, jp, jo, jd, je, **kw)
+    assert (res.n_attackers, res.attacker_fraction) == (jres.n_attackers, jres.attacker_fraction)
 
 
 def test_tiny_quadratic_problem_is_seeded():

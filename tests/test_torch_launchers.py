@@ -1,12 +1,22 @@
-"""The three launchers of the decentralized slice on the CPU, at 2 rounds:
-``launch/swarm.py --scenario`` on a decentralized scenario,
-``launch/derailment_no_off.py`` (the small LM's three-regime table) and
-``launch/topology_no_off.py --tiny`` (the decentralized table on the
-quadratic, with its spectral gaps).  Their refusal of the CPU unless asked
-is in ``test_torch_package.py``."""
+"""The launchers on the CPU, at 2-4 rounds: ``launch/swarm.py --scenario``
+on a decentralized scenario and on ``stale_poisoning`` (the async round,
+with the custody checkpoint at the end restored bit for bit by every
+holder and refused to two), ``launch/derailment_no_off.py`` (the small
+LM's three-regime table), ``launch/topology_no_off.py --tiny`` (the
+decentralized table on the quadratic, with its spectral gaps) and
+``launch/custody_frontier.py --tiny`` (its extractability table equal to
+the reference example's grid swept by the reference: the letters read
+coverage alone).  Their refusal of the CPU unless asked is in
+``test_torch_package.py``."""
+import jax
 import numpy as np
 import pytest
+import torch
 
+from repro.core import derailment as jder
+from repro.core import scenarios as jscen
+from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.launch import custody_frontier as launch_custody
 from repro_torch.launch import derailment_no_off as launch_derailment
 from repro_torch.launch import swarm as launch_swarm
 from repro_torch.launch import topology_no_off as launch_topology
@@ -51,3 +61,38 @@ def test_swarm_launcher_refuses_nodes_with_the_showcase(capsys):
         launch_swarm.main(["--device", "cpu", "--rounds", "1", "--nodes", "16"])
     assert exc.value.code == 2
     assert "--nodes sizes a registered --scenario" in capsys.readouterr().err
+
+
+def test_swarm_launcher_runs_an_async_scenario_and_checkpoints(capsys, tmp_path):
+    """``--scenario stale_poisoning``: the async round (staleness above 0
+    once the ring has rounds to lag), only the attackers slashed; the
+    custody checkpoint restored by every holder equals the params bit for
+    bit, and two holders are refused."""
+    out = launch_swarm.main(["--device", "cpu", "--rounds", "3", "--scenario",
+                             "stale_poisoning", "--nodes", "8", "--ckpt", str(tmp_path)])
+    swarm = out["swarm"]
+    assert swarm.cfg.staleness_bound == 3 and swarm._ring is not None
+    assert max(h["staleness"] for h in swarm.history) > 0
+    assert swarm.slashed <= {"adv0", "adv1"} and swarm.ledger.check_conservation()
+    holders = [n for shard in out["custody"].assignment.values() for n in shard]
+    back = ckpt.restore_custody(out["ckpt"], swarm.eval_params(), holders=sorted(set(holders)))
+    for k, v in swarm.eval_params().items():
+        assert torch.equal(back[k].view(torch.int32), v.view(torch.int32)), k
+    with pytest.raises(PermissionError):
+        ckpt.restore_custody(out["ckpt"], swarm.eval_params(), holders=holders[:2])
+    assert "partial-coalition restore correctly refused" in capsys.readouterr().out
+
+
+def test_custody_frontier_launcher_table_equals_the_reference(capsys):
+    from test_torch_derailment import _examples_common
+    res = launch_custody.main(["--device", "cpu", "--tiny", "--rounds", "4", "--seeds", "1"])
+    grid = launch_custody.custody_grid(4, 1)
+    jgrid = jscen.SweepGrid(**{f: getattr(grid, f) for f in grid.__dataclass_fields__
+                               if f != "regimes"},
+                            regimes=(jscen.Regime("mean", "mean"),))
+    jl, jp, jd, je, jo = _examples_common().tiny_quadratic_problem()
+    jres = jder.sweep(jl, jp, jo, jd, je, jgrid)
+    assert res.extractability_table() == jres.extractability_table()
+    assert res.n_runs == jres.n_runs == 16
+    text = capsys.readouterr().out
+    assert "redundancy 3: min extraction coalition" in text and "mean r=3" in text

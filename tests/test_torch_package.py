@@ -30,6 +30,7 @@ from repro_torch.kernels.qsgd import ops as qsgd_ops
 from repro_torch.kernels.qsgd_decode import ops as qdec
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.swa_attention import ops as swa
+from repro_torch.launch import custody_frontier as launch_custody
 from repro_torch.launch import derailment_no_off as launch_derailment
 from repro_torch.launch import problems
 from repro_torch.launch import protocol_inference as launch_protocol
@@ -84,6 +85,7 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.core.scenarios", "repro_torch.core.derailment",
             "repro_torch.launch.problems", "repro_torch.core.topology",
             "repro_torch.core.gossip", "repro_torch.launch.derailment_no_off",
+            "repro_torch.checkpoint.checkpoint", "repro_torch.launch.custody_frontier",
             "repro_torch.launch.topology_no_off"} <= mods
 
 
@@ -125,7 +127,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                  lambda: launch_swarm.main(["--rounds", "1", "--scenario",
                                             "byzantine_neighborhood"]),
                  lambda: launch_derailment.main(["--rounds", "1"]),
-                 lambda: launch_topology.main(["--rounds", "1", "--tiny"])):
+                 lambda: launch_topology.main(["--rounds", "1", "--tiny"]),
+                 lambda: launch_custody.main(["--rounds", "1", "--tiny"])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -840,3 +843,136 @@ def test_decentralized_round_aggregates_with_the_kernels_on_the_card(cuda, monke
         assert bool(((out - v).abs() <= 3e-5 + 3e-5 * v.abs()).all()), j
     assert all(np.isfinite(h["consensus_error"]) and h["consensus_error"] > 0
                for h in sw.history)
+
+
+def _stale_roster(n):
+    """``stale_poisoning``'s roster: honest nodes fresh, 2 sign-flip
+    attackers that may lag 3 rounds."""
+    return [tswarm.NodeSpec(f"h{i}") for i in range(n - 2)] + [
+        tswarm.NodeSpec(f"adv{i}", byzantine="sign_flip", byzantine_scale=10.0, delay=3)
+        for i in range(2)]
+
+
+@pytest.mark.cuda
+def test_async_round_launches_the_kernels_on_the_card(cuda):
+    """An async CenteredClip round (K = 3) at D = 4,096 and N = 8 on the
+    card takes the fused median and chain as the synchronous round does:
+    one median and 3 iterations a round; the delays are drawn on the host,
+    so the card's staleness equals a CPU run's of the same roster; a K = 3
+    run whose
+    caps are all 0 is bit-equal to the synchronous run."""
+    from repro_torch.core.verification import VerificationConfig
+    d, n, rounds = 4096, 8, 4
+    loss_fn, data_fn = _card_quadratic(cuda, d, n, rounds)
+    ver = VerificationConfig(p_check=0.25, stake=10.0, tolerance=1e-3, jackpot=5.0)
+    cfg = tswarm.SwarmConfig(aggregator="centered_clip", verification=ver, staleness_bound=3)
+    sw = tswarm.Swarm(loss_fn, {"w": torch.zeros(d, device=cuda)}, SGD(lr=0.1, momentum=0.0),
+                      _stale_roster(n), cfg, data_fn)
+    assert sw.fused
+    for k in magg.LAUNCHES:
+        magg.LAUNCHES[k] = 0
+    for r in range(rounds):
+        sw.step(r)
+    assert magg.LAUNCHES == {"masked_median": rounds, "masked_cc_iter": 3 * rounds,
+                             "masked_krum_d2": 0}
+    assert max(h["staleness"] for h in sw.history) > 0
+    assert not sw.slashed & {f"h{i}" for i in range(n - 2)}
+    # without audits (whose draws come from the device's generator) the
+    # active sets match, and so does the staleness
+    plain = tswarm.SwarmConfig(aggregator="centered_clip", staleness_bound=3)
+    stale = []
+    for dev in (cuda, torch.device("cpu")):
+        dev_loss, dev_data = _card_quadratic(dev, d, n, rounds)
+        one = tswarm.Swarm(dev_loss, {"w": torch.zeros(d, device=dev)},
+                           SGD(lr=0.1, momentum=0.0), _stale_roster(n), plain, dev_data)
+        for r in range(rounds):
+            one.step(r)
+        stale.append([h["staleness"] for h in one.history])
+    assert stale[0] == stale[1] and max(stale[0]) > 0
+    runs = []
+    for bound in (0, 3):
+        one = tswarm.Swarm(loss_fn, {"w": torch.zeros(d, device=cuda)},
+                           SGD(lr=0.1, momentum=0.0), _card_roster(n),
+                           tswarm.SwarmConfig(aggregator="centered_clip", staleness_bound=bound),
+                           data_fn)
+        for r in range(rounds):
+            one.step(r)
+        runs.append(one)
+    assert torch.equal(runs[0].params["w"].view(torch.int32), runs[1].params["w"].view(torch.int32))
+    assert runs[0].history == runs[1].history
+
+
+@pytest.mark.cuda
+def test_sequential_async_round_launches_the_dense_kernels_on_the_card(cuda):
+    """``SequentialSwarm``'s async path (K = 3) at D = 4,096 on the card:
+    the dense CenteredClip over the survivors launches one median warm
+    start and 3 ``cc_iter`` a round, and the history equals the batched
+    engine's (staleness exactly, agg_norm within 1e-5: the dense aggregator
+    over the compacted survivors against the masked one over the stack)."""
+    d, n, rounds = 4096, 8, 4
+    loss_fn, data_fn = _card_quadratic(cuda, d, n, rounds)
+    cfg = tswarm.SwarmConfig(aggregator="centered_clip", staleness_bound=3)
+    runs = []
+    for engine in ("sequential", "batched"):
+        sw = tswarm.make_swarm(loss_fn, {"w": torch.zeros(d, device=cuda)},
+                               SGD(lr=0.1, momentum=0.0), _stale_roster(n), cfg, data_fn,
+                               engine=engine)
+        for counters in (magg.LAUNCHES, cc_ops.LAUNCHES):
+            for k in counters:
+                counters[k] = 0
+        for r in range(rounds):
+            sw.step(r)
+        runs.append((sw, dict(magg.LAUNCHES), dict(cc_ops.LAUNCHES)))
+    (seq, seq_magg, seq_cc), (bat, _, _) = runs
+    assert seq_magg["masked_median"] == rounds and seq_cc["cc_iter"] == 3 * rounds
+    assert max(h["staleness"] for h in seq.history) > 0
+    for hs, hb in zip(seq.history, bat.history):
+        assert (hs["n_active"], hs["staleness"]) == (hb["n_active"], hb["staleness"])
+        np.testing.assert_allclose(hs["agg_norm"], hb["agg_norm"], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_custody_round_launches_the_kernels_on_the_card(cuda):
+    """A custody lane on the card changes nothing of the training: the
+    CenteredClip rounds launch what the plain ones do and end bit-equal;
+    ``coverage`` is 1.0 with every node active, and a campaign's
+    reconstruct attack by a partial coalition evaluates exactly the params
+    with the shards it lacks zeroed."""
+    from repro_torch.core.unextractable import CustodyConfig
+    d, n, rounds = 4096, 8, 3
+    loss_fn, data_fn = _card_quadratic(cuda, d, n, rounds)
+    custody = CustodyConfig(num_shards=16, redundancy=2, max_fraction=0.4,
+                            coalition_fraction=0.25)
+    runs, launches = [], []
+    for c in (None, custody):
+        sw = tswarm.Swarm(loss_fn, {"w": torch.zeros(d, device=cuda)},
+                          SGD(lr=0.1, momentum=0.0), _card_roster(n),
+                          tswarm.SwarmConfig(aggregator="centered_clip", custody=c), data_fn)
+        for k in magg.LAUNCHES:
+            magg.LAUNCHES[k] = 0
+        for r in range(rounds):
+            sw.step(r)
+        runs.append(sw)
+        launches.append(dict(magg.LAUNCHES))
+    assert launches[0] == launches[1] and launches[1]["masked_median"] == rounds
+    assert torch.equal(runs[0].params["w"].view(torch.int32), runs[1].params["w"].view(torch.int32))
+    assert runs[0].history == runs[1].history
+    assert all(h["coverage"] == 1.0 for h in runs[1].history)
+    cfg = tswarm.SwarmConfig(aggregator="centered_clip", custody=custody)
+    lanes = tswarm.stack_lanes([tswarm.lane_for_nodes(_card_roster(n), cfg, cuda)])
+
+    def eval_fn(p):
+        return loss_fn(p, data_fn(0, 0))
+
+    state, recs, final = tswarm.run_campaign(
+        loss_fn, {"w": torch.zeros(d, device=cuda)}, SGD(lr=0.1, momentum=0.0), data_fn,
+        lanes, rounds=rounds, aggregator="centered_clip", eval_fn=eval_fn)
+    assert bool((recs.coverage == 1.0).all()) and final.shape == (1, 2)
+    covered = unextractable.shards_covered(lanes.custody[0], lanes.coalition[0])
+    assert not bool(covered.all())
+    params = tswarm.lane_slice(state.params, 0)
+    with torch.no_grad():
+        want = torch.stack([eval_fn(params), eval_fn(unextractable.masked_reconstruct(
+            params, covered))])
+    assert torch.equal(final[0].view(torch.int32), want.view(torch.int32))
+    assert float(final[0, 1]) != float(final[0, 0])

@@ -245,10 +245,23 @@ def test_model_rounds_match_reference():
 
 
 def test_unported_axes_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tswarm.SwarmConfig(custody=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tswarm.SwarmConfig(staleness_bound=2)
+    """The custody (item 7) and async (item 9) axes are accepted, as the
+    reference's config takes them; the economy (item 10) still raises."""
+    from repro.core.unextractable import CustodyConfig as JCustody
+    from repro_torch.core.unextractable import CustodyConfig as TCustody
+    cfg = tswarm.SwarmConfig(custody=TCustody(num_shards=4, redundancy=2),
+                             staleness_bound=2)
+    assert (cfg.custody, cfg.staleness_bound) == (TCustody(num_shards=4, redundancy=2), 2)
+    nodes = [tswarm.NodeSpec("a", speed=0.25), tswarm.NodeSpec("b", delay=5),
+             tswarm.NodeSpec("c", speed=2.0), tswarm.NodeSpec("d", speed=0.5, delay=0)]
+    jnodes = [jswarm.NodeSpec(**n.__dict__) for n in nodes]
+    assert [n.effective_delay for n in nodes] == [n.effective_delay for n in jnodes] == \
+        [3, 5, 0, 0]
+    lane = tswarm.lane_for_nodes(nodes, cfg, torch.device("cpu"))
+    jlane = jswarm.lane_for_nodes(jnodes, jswarm.SwarmConfig(
+        custody=JCustody(num_shards=4, redundancy=2), staleness_bound=2))
+    for field in ("custody", "coalition", "delays"):
+        assert np.array_equal(getattr(lane, field).numpy(), np.asarray(getattr(jlane, field)))
     with pytest.raises(NotImplementedError, match="item 10"):
         tswarm.SwarmConfig(economy=object())
     with pytest.raises(ValueError, match="unknown engine"):
