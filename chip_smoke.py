@@ -119,6 +119,17 @@ Phases, each timed with CUDA events:
    largest delay bit-equal to its gradient recomputed alone at its
    snapshot, sign-flipped; no honest node slashed; two more rounds on CUDA
    events and the phase's peak memory;
+4f. the economy lane at full width: ``python -m repro_torch.launch.swarm
+   --full --scenario economy_sybil_adaptive --nodes 10 --rounds 3`` (5
+   honest nodes and a coalition of 5 inner-product identities, all funded
+   from the 50-unit budget at cost 0.1 + bond 5, so stakes 9.9 against the
+   honest 5.0; CenteredClip, audits at p 0.1, the adaptive best
+   response): each round the lane's own CenteredClip and the 4 scored
+   ones, 15 medians and 45 iterations; round 0's four scored aggregates
+   within 3e-5 of ``core.aggregation``'s unfused masked CenteredClip on
+   the same stacks, the same best scale, which the coalition then
+   submitted; the conservation gap at most 1e-4 of the inflow after every
+   round; two more rounds on CUDA events and their peak memory;
 10. the §5.5 sweep: ``derailment.sweep`` of the ``no_off_smoke`` grid
    (mean and CenteredClip against 2 and 6 inner-product attackers beside
    6 honest nodes, and the honest baseline: 5 lanes of one campaign, 8
@@ -168,6 +179,15 @@ Phases, each timed with CUDA events:
    out, the reconstruct attack in every lane) on the tiny quadratic, card
    against CPU: the extractability and phase tables equal as strings, the
    coverage traces exactly, the final and extracted losses within 1e-4;
+10g. the economy sweep: ``no_off_economy_smoke`` (mean and CenteredClip
+   under audits at p 0.25 against a coalition of 3 beside 6 honest, two
+   identity costs, two fees, fixed and adaptive, 8 rounds, the baseline:
+   17 lanes) on the tiny quadratic, the card given the CPU run's audit
+   draws: the phase tables and both regimes' economy tables (fixed and
+   adaptive) equal as strings, each cell's outcome and admitted counts
+   equal, losses and payoffs within 1e-4, the adaptive gap over 8 cells;
+   its fixed CenteredClip lanes launch one median and chain a round, its
+   adaptive ones 5 (the 4 scored scales and the round's own);
 7. the serving path (``protocol_serve``): ``python -m
    repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
    --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
@@ -249,8 +269,8 @@ Phases, each timed with CUDA events:
    ``flex_attention`` with a sliding-window block mask, zamba2's causal
    triangle against ``scaled_dot_product_attention(is_causal=True)``).
 
-Each driven path (phases 4, 4b, 4c, 4d, 4e, 5, 7, 7c, 7e, 10, 10b, 10c, 10d, 10e
-and 10f) has launch counters of its own:
+Each driven path (phases 4, 4b, 4c, 4d, 4e, 4f, 5, 7, 7c, 7e, 10, 10b, 10c, 10d,
+10e, 10f and 10g) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
@@ -344,6 +364,14 @@ ASYNC_ROUNDS, ASYNC_BOUND = 4, 3
 # phase 10e: no_off_async_smoke (CenteredClip at K = 0 and 2 against 2 and 6
 # attackers beside 6 honest, the baselines: 6 lanes), its 4 CenteredClip lanes
 NO_OFF_ASYNC_CC_LANES = 4
+# phase 4f: economy_sybil_adaptive at full width, 3 rounds; an adaptive
+# CenteredClip round aggregates once for each of the 4 scales it scores
+# (economy.ADAPTIVE_SCALES) and once for itself; 2 more rounds timed
+ECON_ROUNDS, ECON_SCORED = 3, 4
+ECON_GAP_REL = 1e-4             # the conservation gap, of the inflow
+ECON_AGG_REL = 1e-5             # a scored aggregate against the unfused one (phase 6's bound)
+# phase 10g: no_off_economy_smoke, 4 fixed and 4 adaptive CenteredClip lanes
+NO_OFF_ECON_CC_LANES = 4
 
 # kernel -> (source, TPU kernel it replaces, the driven path that is its own[,
 # the launch counter, where the row is the kernel at another path's shape])
@@ -389,6 +417,13 @@ EXPECTED_LAUNCHES = {
     "stale_poisoning": {k: ASYNC_ROUNDS * v for k, v in _CC_ROUND.items()},
     "no_off_async_smoke": {k: NO_OFF_ASYNC_CC_LANES * NO_OFF_ROUNDS * v
                            for k, v in _CC_ROUND.items()},
+    # the economy lane: the round's CenteredClip and the 4 scored ones
+    "economy_sybil_adaptive": {k: ECON_ROUNDS * (1 + ECON_SCORED) * v
+                               for k, v in _CC_ROUND.items()},
+    # no_off_economy_smoke: a fixed CenteredClip lane one a round, an
+    # adaptive one 5; mean lanes score and aggregate without a kernel
+    "no_off_economy_smoke": {k: NO_OFF_ROUNDS * NO_OFF_ECON_CC_LANES * (1 + (1 + ECON_SCORED)) * v
+                             for k, v in _CC_ROUND.items()},
     # custody_smoke's lanes are all mean over an uncompressed wire: no kernel
     "custody_smoke": {},
     "showcase_sequential": {"masked_median": SHOWCASE_ROUNDS,
@@ -571,6 +606,9 @@ class Smoke:
         torch.cuda.reset_peak_memory_stats()
         self.phase("4e async round (stale_poisoning, full width)", self.async_path)
         self.free()
+        torch.cuda.reset_peak_memory_stats()
+        self.phase("4f economy lane (economy_sybil_adaptive, full width)", self.economy_path)
+        self.free()
         self.phase("10 no_off_smoke on the tiny quadratic, card vs CPU", self.no_off_smoke)
         self.phase("10c no_off_lm on the small LM, card vs CPU", self.no_off_lm)
         self.phase("10d no_off_topology_smoke on the tiny quadratic, card vs CPU",
@@ -578,6 +616,8 @@ class Smoke:
         self.phase("10e no_off_async_smoke on the tiny quadratic, card vs CPU",
                    self.no_off_async)
         self.phase("10f custody_smoke on the tiny quadratic, card vs CPU", self.custody_smoke)
+        self.phase("10g no_off_economy_smoke on the tiny quadratic, card vs CPU",
+                   self.no_off_economy)
         torch.cuda.reset_peak_memory_stats()
         self.phase("10b no_off_smoke campaign on protocol-125m (full width)",
                    lambda: self.campaign_full_width(main_out["problem"]))
@@ -1580,6 +1620,202 @@ class Smoke:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the ring holds "
               f"{ASYNC_BOUND + 1} param dicts by reference)", flush=True)
 
+    def economy_path(self):
+        """Phase 4f: ``python -m repro_torch.launch.swarm --full --scenario
+        economy_sybil_adaptive --nodes 10 --rounds 3`` on counters of its own
+        (each round the 4 scored CenteredClips of the best response, then
+        the round's own).  Round 0's scored aggregates, on the same stacks:
+        within 3e-5 of the kernels' plain version (the median and 3
+        iterations, as phase 4c holds a neighbourhood), elementwise relative
+        to the column's largest entry beside the value itself (a column's
+        sums cancel: the coalition's rows reach ~1e6 where the aggregate is
+        near 0, so the rounding of the sum is relative to its terms); within
+        ECON_AGG_REL relative L2 of ``core.aggregation.masked_centered_clip``,
+        the reference's route (phase 6's fused-against-unfused bound), their
+        scores within 3e-5 relative of its scores (the honest mean read back
+        from a coalition row, ``-s · mean`` with s a power of two) and the
+        same best scale (a near-tie is printed instead); the coalition's
+        round-0 rows are that scale's; the conservation gap is held after
+        every round; then two rounds on CUDA events and their peak
+        memory."""
+        torch = self.torch
+        from repro_torch.core import aggregation, economy
+        from repro_torch.core.scenarios import get_scenario
+        from repro_torch.kernels.masked_agg import ops as magg
+        from repro_torch.launch import swarm as launch
+        scales = economy.ADAPTIVE_SCALES
+        check(len(scales) == ECON_SCORED, f"ECON_SCORED is not len({scales})")
+        nodes = get_scenario("economy_sybil_adaptive").make_nodes(N_NODES)
+        row = [i for i, n in enumerate(nodes) if n.byzantine is not None][0]
+        fused_cc = magg.FUSED_MASKED_AGGREGATORS["centered_clip"]
+        update = economy.econ_round_update
+        scored, gaps, calls, held = [], [], [0], {}
+
+        def recording(updates, mask, **kw):
+            out = fused_cc(updates, mask, **kw)
+            k = calls[0]
+            calls[0] += 1
+            if k < len(scales):                 # round 0's scored stacks, in menu order
+                hm = updates[row] / -scales[k]
+                held.setdefault("hm", hm)
+                v = magg.masked_median_plain(updates, mask)
+                for _ in range(CC_ITERS):
+                    v = magg.masked_cc_iter_plain(updates, v, mask, None)
+                # the rounding of a column's sums is relative to its terms
+                terms = updates.abs().amax(0) + v.abs()
+                chain_rel = float(((out - v).abs() / (1.0 + terms)).max())
+                chain_ok = bool(((out - v).abs() <= 3e-5 + 3e-5 * terms).all())
+                chain_err = float((out - v).abs().max())
+                del v, terms
+                ref = aggregation.masked_centered_clip(updates, mask, **kw)
+                at = int((out - ref).abs().argmax())
+                scored.append(dict(
+                    kernel=float(-torch.dot(out, hm)), ref=float(-torch.dot(ref, hm)),
+                    chain_ok=chain_ok, chain_err=chain_err, chain_rel=chain_rel,
+                    ref_rel=float((out - ref).norm() / ref.norm()),
+                    ref_abs=float((out - ref).abs().max()), at=(float(out[at]), float(ref[at]))))
+            elif k == len(scales):              # round 0's own aggregation
+                hm = held.pop("hm")
+                held["submitted"] = float(-torch.dot(updates[row], hm) / torch.dot(hm, hm))
+            return out
+
+        def recording_update(*args, **kw):
+            st = update(*args, **kw)
+            inflow = float(torch.sum(st.capital_in) + st.minted + st.fees_in)
+            gaps.append((float(economy.conservation_gap(st)), inflow))
+            return st
+
+        magg.FUSED_MASKED_AGGREGATORS["centered_clip"] = recording
+        economy.econ_round_update = recording_update
+        try:
+            out = self.counted("economy_sybil_adaptive", lambda: launch.main(
+                ["--full", "--scenario", "economy_sybil_adaptive", "--nodes", str(N_NODES),
+                 "--rounds", str(ECON_ROUNDS)] + self.ckpt_args("economy_sybil_adaptive")))
+        finally:
+            magg.FUSED_MASKED_AGGREGATORS["centered_clip"] = fused_cc
+            economy.econ_round_update = update
+        torch.cuda.synchronize()
+        sw = out["swarm"]
+        check(sw.fused and sw._lane.econ.adaptive == 1, "not the fused adaptive economy round")
+        check(calls[0] == ECON_ROUNDS * (1 + ECON_SCORED), f"{calls[0]} CenteredClip calls")
+        check(all(math.isfinite(l) for l in out["losses"]) and sw.ledger.check_conservation(),
+              "non-finite loss or ledger off")
+        submitted = held["submitted"]
+        kernel = [s["kernel"] for s in scored]
+        plain = [s["ref"] for s in scored]
+        for s, d in zip(scales, scored):
+            print(f"  scale {s}: kernel vs its plain version max abs {d['chain_err']:.3e}, "
+                  f"{d['chain_rel']:.3e} of 1 + the column's largest term; "
+                  f"vs core.aggregation relative L2 {d['ref_rel']:.3e}, max abs "
+                  f"{d['ref_abs']:.3e} (there {d['at'][0]!r} / {d['at'][1]!r}); scores "
+                  f"{d['kernel']!r} / {d['ref']!r}", flush=True)
+        for s, d in zip(scales, scored):
+            check(d["chain_ok"], f"scale {s}: the scored aggregate is beyond 3e-5 of the "
+                                 f"kernels' plain version ({d['chain_rel']:.3e})")
+            check(d["ref_rel"] <= ECON_AGG_REL,
+                  f"scale {s}: relative L2 {d['ref_rel']:.3e} from the unfused aggregate")
+            check(abs(d["kernel"] - d["ref"]) <= 3e-5 * abs(d["ref"]),
+                  f"scale {s}: score {d['kernel']} vs {d['ref']}")
+        best = max(range(len(scales)), key=lambda i: (kernel[i], -i))
+        ref_best = max(range(len(scales)), key=lambda i: (plain[i], -i))
+        spread = max(abs(a - b) for a, b in zip(kernel, plain))
+        top2 = sorted(plain)[-2:]
+        if top2[1] - top2[0] > spread:
+            check(best == ref_best, f"best scale {scales[best]} (kernel) vs "
+                                    f"{scales[ref_best]} (unfused)")
+        else:
+            print(f"  near-tie: the unfused scores' top two are {top2[1] - top2[0]:.3e} "
+                  f"apart, within the routes' {spread:.3e}", flush=True)
+        check(abs(submitted - scales[best]) <= 1e-3 * scales[best],
+              f"the coalition submitted {submitted} x the honest mean, not {scales[best]}")
+        for r, (gap, inflow) in enumerate(gaps):
+            check(gap <= ECON_GAP_REL * inflow, f"round {r}: conservation gap {gap} of {inflow}")
+        econ = sw._econ_state
+        print(f"  economy_sybil_adaptive: round-0 scores kernel {kernel} / unfused {plain} "
+              f"(scales {list(scales)}); best {scales[best]}, submitted "
+              f"{submitted:.6f}; coalition_stake {[h['coalition_stake'] for h in sw.history]}; "
+              f"n_active {[h['n_active'] for h in sw.history]}; slashed {sorted(sw.slashed)}; "
+              f"stakes {[round(x, 4) for x in econ.stake.tolist()]}; conservation gaps "
+              f"{[g for g, _ in gaps]} of inflows {[i for _, i in gaps]}; losses "
+              f"{out['losses']}; launcher {out['seconds'] / out['rounds']:.3f} s/round; "
+              f"max_memory_allocated of the launcher's run and the checks "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {self.card_name()}",
+              flush=True)
+        shutil.rmtree(out["ckpt"], ignore_errors=True)
+        scored.clear()
+        del out
+        self.free()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for r in range(ECON_ROUNDS, ECON_ROUNDS + 2):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            sw.step(r)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        print(f"  economy rounds {ECON_ROUNDS}-{ECON_ROUNDS + 1} on CUDA events: "
+              f"{[round(x / 1e3, 4) for x in ms]} s; max_memory_allocated of those rounds "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {self.card_name()}",
+              flush=True)
+
+    def no_off_economy(self):
+        """Phase 10g: the ``no_off_economy_smoke`` sweep on the tiny
+        quadratic, on the card (its CenteredClip lanes through the median
+        and the chain, on counters of their own; the CPU run's audit draws
+        handed in) and on the CPU: the phase tables and cells held as phase
+        10's, both regimes' economy tables, fixed and adaptive, equal as
+        strings, each cell's outcome, coalition size and admitted counts
+        equal, payoffs and stake shares within NO_OFF_LOSS_REL (1e-6
+        absolute), the adaptive gap over 8 cells."""
+        torch = self.torch
+        from repro_torch.core import derailment, scenarios
+        from repro_torch.launch import problems
+        from repro_torch.random import RoundDraws, RoundRandom
+        grid = scenarios.get_sweep_grid("no_off_economy_smoke")
+        spec = derailment.build_sweep_lanes(grid)
+        n, cpu = spec.n_total, torch.device("cpu")
+
+        def draws(j, rnd):
+            """The CPU run's audit draws of lane j, round rnd."""
+            rr = RoundRandom(spec.lanes[j].seed, rnd, cpu)
+            return RoundDraws(audit_sel=torch.stack([rr.audit_sel(i) for i in range(n)]),
+                              audit_noise=torch.stack([rr.audit_noise(i, 16) for i in range(n)]))
+
+        def run(device, draws_fn=None):
+            loss_fn, params, data_fn, eval_fn, opt = problems.tiny_quadratic_problem(
+                device=device)
+            return derailment.sweep(loss_fn, params, opt, data_fn, eval_fn, grid,
+                                    draws_fn=draws_fn)
+
+        card = self.counted("no_off_economy_smoke", lambda: run("cuda", draws))
+        cpu_res = run("cpu")
+        self.hold_tables("no_off_economy_smoke (tiny quadratic, 16 params)", card, cpu_res,
+                         NO_OFF_LOSS_REL)
+        for regime in ("mean+audit", "centered_clip+audit"):
+            for adaptive in (False, True):
+                table = card.economy_phase_table(regime, adaptive=adaptive)
+                print(f"  {regime}, {'adaptive' if adaptive else 'fixed'} coalition, on the "
+                      "card:\n" + "\n".join("    " + line for line in table.splitlines()),
+                      flush=True)
+                check(table == cpu_res.economy_phase_table(regime, adaptive=adaptive),
+                      f"{regime} economy tables differ card vs CPU")
+        worst = 0.0
+        for a, b in zip(card.econ_results, cpu_res.econ_results):
+            for f in ("regime", "identity_cost", "fee", "adaptive", "coalition_size",
+                      "outcome", "n_admitted_first", "n_admitted_last"):
+                check(getattr(a, f) == getattr(b, f), f"{f} differs card vs CPU: {a} / {b}")
+            for f in ("honest_payoff", "coalition_payoff", "coalition_stake_share"):
+                x, y = getattr(a, f), getattr(b, f)
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-30))
+                check(abs(x - y) <= NO_OFF_LOSS_REL * abs(y) + 1e-6, f"{f} {x} vs {y}")
+        gap = card.economy_adaptive_gap()
+        check(gap["cells"] == 8 and len(card.econ_results) == grid.n_points,
+              f"adaptive gap {gap}")
+        print(f"  economy cells card vs CPU: outcomes and admitted counts equal, payoffs "
+              f"within {worst:.3e} relative; adaptive gap {gap}; {self.card_name()}",
+              flush=True)
+
     def no_off_async(self):
         """Phase 10e: the ``no_off_async_smoke`` sweep (CenteredClip at K =
         0 and 2 against 2 and 6 inner-product attackers beside 6 honest, 8
@@ -1922,7 +2158,10 @@ class Smoke:
             ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
             times.append(ms)
             for field in tswarm.RoundRecord._fields:
-                a, b = getattr(recs, field)[k], getattr(one_recs, field)
+                a, b = getattr(tswarm.lane_slice(recs, k), field), getattr(one_recs, field)
+                if a is None or b is None:       # a field of an axis not in the run
+                    check(a is b, f"lane {k}: RoundRecord.{field} is None on one side")
+                    continue
                 check(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
                                   b.view(torch.int32) if b.dtype == torch.float32 else b),
                       f"lane {k}: RoundRecord.{field} differs campaign vs scan program")
@@ -2715,6 +2954,13 @@ class Smoke:
         check(max(gaps) <= 4e-3 and gap <= 4e-3,
               f"kernel and blockwise routes differ beyond 4e-3 (updates {max(gaps):.3e}, "
               f"logits {gap:.3e})")
+
+    def card_name(self):
+        """The card's name and power limit, as nvidia-smi reads them."""
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        return smi.stdout.strip() or f"nvidia-smi: {smi.stderr.strip()}"
 
     def card_state(self):
         """The card's SM and memory clocks, power draw and temperature, as

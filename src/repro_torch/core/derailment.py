@@ -23,26 +23,31 @@ routed by each lane's aggregator id and audit rate, the topologies by its
 mixing matrix (the decentralized round), the staleness bounds by its
 per-node delay caps (the async round) and the custody cells by its custody
 matrix and coalition mask (the live coverage and the reconstruct-attack
-eval, read by ``SweepResult.extractability_table``).  ``attack_cost``
-prices the attack (compute + slashed stakes); ``no_off_report`` renders
-the table row by row.
+eval, read by ``SweepResult.extractability_table``) and the economy cells
+by its ``economy.EconParams`` (identity cost, fee, reward schedule, the
+adaptive flag; one ``economy.EconomyResult`` per cell, read by
+``SweepResult.economy_phase_table`` and ``economy_adaptive_gap``).
+``attack_cost`` prices the attack (compute + slashed stakes);
+``no_off_report`` renders the table row by row.
 
-The reference's economy axes and their tables (ROADMAP queue 1, item 10)
-and a ``MeshPlan`` placement (item 13) raise ``NotImplementedError`` naming
-their item where a sweep reaches them.
+A ``MeshPlan`` placement (ROADMAP queue 1, item 13) raises
+``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
 import functools
 import time
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import economy
 from repro_torch.core import topology as topo_mod
 from repro_torch.core import unextractable
+from repro_torch.core.economy import EconomyConfig, EconomyResult, EconParams
 from repro_torch.core.scenarios import Regime, SweepGrid
 from repro_torch.core.swarm import (
     BEHAVIOUR_CODES,
@@ -202,24 +207,28 @@ def simulate_derailment(loss_fn, init_params, optimizer, data_fn, eval_fn, *,
 class SweepResult:
     """Every cell of a :class:`~repro_torch.core.scenarios.SweepGrid`, plus
     how it ran (``n_programs`` campaigns for ``n_runs`` runs — baseline
-    lanes included) and how long the whole sweep took."""
+    lanes included) and how long the whole sweep took.  An economy grid
+    also gives one ``EconomyResult`` a cell, in ``results`` order."""
     grid: SweepGrid
     results: List[DerailmentResult]
     n_programs: int
     n_runs: int
     wall_s: float
+    econ_results: List[EconomyResult] = field(default_factory=list)
 
     @property
     def runs_per_s(self) -> float:
         return self.n_runs / max(self.wall_s, 1e-9)
 
     def economy_phase_table(self, regime: str, *, adaptive: bool = False) -> str:
-        raise NotImplementedError("the economy phase table is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+        """The §4 incentive phase table of one regime (identity-cost rows,
+        fee columns, S/D/C cells): :func:`economy.phase_table`."""
+        return economy.phase_table(self.econ_results, regime=regime, adaptive=adaptive)
 
     def economy_adaptive_gap(self) -> Dict[str, float]:
-        raise NotImplementedError("the economy adaptive gap is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+        """The fixed-against-adaptive gap over matched economy cells:
+        :func:`economy.adaptive_gap`."""
+        return economy.adaptive_gap(self.econ_results)
 
     def phase_table(self) -> str:
         """The §5.5 phase diagram: derailed-seed counts per (regime [,
@@ -307,7 +316,8 @@ def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
                 leaves: Optional[np.ndarray] = None,
                 custody: Optional[np.ndarray] = None,
                 coalition: Optional[np.ndarray] = None,
-                delays: Optional[np.ndarray] = None) -> LaneParams:
+                delays: Optional[np.ndarray] = None,
+                econ: Optional[EconParams] = None) -> LaneParams:
     """One run lane: honest nodes first, ``count`` attackers, then padding
     that never joins (all regimes share a fixed N so they run as one
     campaign).  Node indices — and therefore the ``(seed, purpose, round,
@@ -324,7 +334,8 @@ def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
     ``coalition`` are the lane's (n_total, S) custody matrix and (n_total,)
     coalition mask (padding rows hold nothing); ``delays`` (async sweeps)
     the (n_total,) per-node staleness caps, so that every bound of the
-    axis shares the campaign."""
+    axis shares the campaign; ``econ`` (economy sweeps) the lane's
+    :class:`~repro_torch.core.economy.EconParams` on the CPU."""
     codes = np.zeros(n_total, np.int32)
     codes[n_honest:n_honest + count] = code
     scales = np.full(n_total, 10.0, np.float32)     # NodeSpec default
@@ -347,6 +358,7 @@ def _sweep_lane(n_total: int, n_honest: int, count: int, code: int,
         custody=custody,
         coalition=coalition,
         delays=delays,
+        econ=econ,
     )
 
 
@@ -378,27 +390,12 @@ class SweepProgramSpec:
         return self.agg_specs[0][1] if len(self.agg_specs) == 1 else None
 
 
-#: a SweepGrid's later-axis fields -> the ROADMAP queue 1 item each waits for
-_GRID_AXES = (("identity_costs", 10), ("fees", 10), ("reward_schedules", 10),
-              ("adaptive", 10))
-
-
-def _refuse_later_axes(grid: SweepGrid) -> None:
-    for name, item in _GRID_AXES:
-        if getattr(grid, name):
-            raise NotImplementedError(
-                f"sweep grid {grid.name!r}: SweepGrid.{name} is not ported yet "
-                f"(ROADMAP queue 1, item {item})")
-
-
 def build_sweep_lanes(grid: SweepGrid, *, rounds: Optional[int] = None) -> SweepProgramSpec:
     """Build every lane of a :class:`~repro_torch.core.scenarios.SweepGrid`'s
     phase diagram — the grid cells, plus the shared honest baselines —
     without running anything.  See :class:`SweepProgramSpec`.  The lanes,
-    their order and their metadata are the reference's for every grid but
-    the economy's.  ``rounds`` (default ``grid.rounds``) places the custody
-    churn's leave rounds."""
-    _refuse_later_axes(grid)
+    their order and their metadata are the reference's.  ``rounds``
+    (default ``grid.rounds``) places the custody churn's leave rounds."""
     rounds = grid.rounds if rounds is None else rounds
     n_honest = grid.n_honest
     n_total = n_honest + max(grid.attacker_counts)
@@ -483,25 +480,45 @@ def build_sweep_lanes(grid: SweepGrid, *, rounds: Optional[int] = None) -> Sweep
             lv[int(i)] = start + j % max(1, rounds - start)
         return lv
 
+    # the economy axes (§4): identity cost, fee inflow, reward schedule and
+    # the adaptive flag ride on the lane's EconParams.  The lane's attacker
+    # slots are the coalition, funded from the grid's one budget; baseline
+    # lanes carry the first combination with an empty coalition (fees and
+    # rewards never touch the gradients, so one baseline a (topology,
+    # staleness bound, seed) serves every economy cell)
+    has_econ = grid.has_economy
+    icosts = (grid.identity_costs or (1.0,)) if has_econ else (None,)
+    efees = (grid.fees or (1.0,)) if has_econ else (None,)
+    scheds = (grid.reward_schedules or ((0.1, 5.0),)) if has_econ else (None,)
+    adapts = (grid.adaptive or (False,)) if has_econ else (None,)
+
+    @functools.lru_cache(maxsize=None)
+    def econ_for(icost, fee, sched, adp, count) -> Optional[EconParams]:
+        if not has_econ:
+            return None
+        coal = np.zeros(n_total, bool)
+        coal[n_honest:n_honest + count] = True
+        return EconomyConfig(
+            identity_cost=icost, budget=grid.econ_budget, min_stake=grid.econ_min_stake,
+            fee_income=fee, reward_rate=sched[0], op_cost=grid.econ_op_cost,
+            jackpot=sched[1], honest_reserve=grid.econ_reserve,
+            adaptive=adp).params_for(coal)
+
     lanes, metas = [], []
+    econ_combos = list(itertools.product(icosts, efees, scheds, adapts))
     for reg in grid.regimes:
         aid = agg_index[(reg.aggregator, tuple(sorted(reg.agg_kwargs.items())))]
-        for topo in topos:
-            for sbound in sbounds:
-                for red in reds:
-                    for cfrac in cfracs:
-                        for count in grid.attacker_counts:
-                            for scale in grid.scales:
-                                for seed in grid.seeds:
-                                    lanes.append(_sweep_lane(
-                                        n_total, n_honest, count, code, scale, seed,
-                                        reg.verification, aid, lane_kw(count),
-                                        mixing=mixings[topo], leaves=leaves_for(seed),
-                                        custody=custody_for(red, count),
-                                        coalition=coalition_for(cfrac, count),
-                                        delays=delays_for(sbound, count)))
-                                    metas.append((reg, topo, sbound, red, cfrac, count,
-                                                  scale, seed, None, None, None, None))
+        for topo, sbound, red, cfrac, (icost, fee, sched, adp), count, scale, seed in \
+                itertools.product(topos, sbounds, reds, cfracs, econ_combos,
+                                  grid.attacker_counts, grid.scales, grid.seeds):
+            lanes.append(_sweep_lane(
+                n_total, n_honest, count, code, scale, seed, reg.verification, aid,
+                lane_kw(count), mixing=mixings[topo], leaves=leaves_for(seed),
+                custody=custody_for(red, count), coalition=coalition_for(cfrac, count),
+                delays=delays_for(sbound, count),
+                econ=econ_for(icost, fee, sched, adp, count)))
+            metas.append((reg, topo, sbound, red, cfrac, count, scale, seed,
+                          icost, fee, sched, adp))
     for topo in topos:                   # baseline lanes (count = 0), one a
         for sbound in sbounds:           # (topology, staleness bound, seed):
             for seed in grid.seeds:      # async baselines run at the bound
@@ -509,9 +526,10 @@ def build_sweep_lanes(grid: SweepGrid, *, rounds: Optional[int] = None) -> Sweep
                     n_total, n_honest, 0, code, 0.0, seed, None,
                     agg_index[("mean", ())], lane_kw(0), mixing=mixings[topo],
                     leaves=leaves_for(seed), custody=custody_for(reds[0], 0),
-                    coalition=coalition_for(0.0, 0), delays=delays_for(sbound, 0)))
+                    coalition=coalition_for(0.0, 0), delays=delays_for(sbound, 0),
+                    econ=econ_for(icosts[0], efees[0], scheds[0], False, 0)))
                 metas.append((None, topo, sbound, reds[0], 0.0, 0, 0.0, seed,
-                              None, None, None, False))
+                              icosts[0], efees[0], scheds[0], False))
 
     def coalition_coverage(red: int, cfrac: float, count: int) -> float:
         cov = custody_for(red, count) & coalition_for(cfrac, count)[:, None]
@@ -532,7 +550,7 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
     """Measure a whole §5.5 phase diagram as **one** campaign.
 
     Every (regime × topology × staleness bound × redundancy × coalition
-    fraction × attacker count × scale × seed) cell is a lane: verification
+    fraction × economy × attacker count × scale × seed) cell is a lane: verification
     differences ride in the lanes' ``p_check`` / ``tolerance`` (``p_check =
     0`` disables audits), aggregator differences in their ``agg_id`` over
     the round's aggregator set, topology differences in their mixing
@@ -542,6 +560,9 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
     custody matrix and coalition (``grid.redundancies`` /
     ``coalition_fractions``: each lane records its coverage and evaluates
     the reconstruct attack, feeding :meth:`SweepResult.extractability_table`),
+    economy cells in their ``EconParams`` (identity cost × fee × reward
+    schedule × adaptive, the attackers the coalition: each lane carries its
+    economy, feeding :meth:`SweepResult.economy_phase_table`),
     and the honest baseline rides along as extra ``count = 0`` lanes, one per
     (topology, staleness bound, seed).  Lane building lives in
     :func:`build_sweep_lanes`.  Each result lane reproduces the
@@ -549,7 +570,8 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
 
     ``fast_compile`` is the reference's XLA option, accepted and unused
     (the port compiles nothing).  ``plan`` (a ``MeshPlan``) waits for the
-    distributed layer (item 13); an economy grid raises item 10.
+    distributed layer (item 13).  An economy grid also fills
+    ``econ_results`` (:func:`economy_results`).
     ``return_campaign=True`` returns ``(result, (state, records, final
     losses))``, the campaign's own outputs, lane j the j-th of
     :func:`build_sweep_lanes` (the cells in ``results`` order, then the
@@ -577,12 +599,49 @@ def sweep(loss_fn, init_params, optimizer, data_fn, eval_fn,
     campaign = (state, recs, final) if return_campaign else None
     slashed = state.slashed.cpu().numpy()
     last_coverage = recs.coverage[:, -1].cpu().numpy()
+    final = final.cpu().numpy()
+    econ_results = (economy_results(spec, final, recs, state.econ) if grid.has_economy
+                    else [])
     del state, recs
-    results = sweep_results(spec, final.cpu().numpy(), slashed, init_loss,
-                            last_coverage)
+    results = sweep_results(spec, final, slashed, init_loss, last_coverage)
     result = SweepResult(grid=grid, results=results, n_programs=1,
-                         n_runs=len(spec.lanes), wall_s=time.perf_counter() - t0)
+                         n_runs=len(spec.lanes), wall_s=time.perf_counter() - t0,
+                         econ_results=econ_results)
     return (result, campaign) if return_campaign else result
+
+
+def economy_results(spec: SweepProgramSpec, final: np.ndarray, recs,
+                    econ) -> List[EconomyResult]:
+    """One ``EconomyResult`` per cell of an economy sweep, in ``results``
+    order, from the campaign's (L, T, ...) records and its final (L, ...)
+    ``EconState``: the outcome from the honest nodes kept in the first and
+    last rounds, the coalition's last share of the kept stake and the mean
+    honest payoff."""
+    n_honest = spec.n_honest
+    honest = final[:, 0] if spec.has_custody else final
+    keep = recs.keep.cpu().numpy()                          # (L, T, N)
+    n_act = recs.n_active.cpu().numpy()                     # (L, T)
+    coal_tr = recs.coalition_stake.cpu().numpy()            # (L, T)
+    pay = economy.payoff(econ).cpu().numpy()                # (L, N)
+    out = []
+    for j, (reg, *_, count, _, seed, icost, fee, sched, adp) in enumerate(spec.metas):
+        if reg is None:
+            continue
+        hp = float(pay[j, :n_honest].mean())
+        cp = float(pay[j, n_honest:n_honest + count].mean()) if count else 0.0
+        out.append(EconomyResult(
+            regime=reg.name, identity_cost=icost, fee=fee, reward_rate=sched[0],
+            jackpot=sched[1], adaptive=adp, coalition_size=count, seed=seed,
+            outcome=economy.classify_outcome(
+                honest_active_first=int(keep[j, 0, :n_honest].sum()),
+                honest_active_last=int(keep[j, -1, :n_honest].sum()),
+                coalition_stake_last=float(coal_tr[j, -1]),
+                honest_payoff_mean=hp),
+            honest_payoff=hp, coalition_payoff=cp,
+            coalition_stake_share=float(coal_tr[j, -1]),
+            n_admitted_first=int(n_act[j, 0]), n_admitted_last=int(n_act[j, -1]),
+            final_loss=float(honest[j])))
+    return out
 
 
 def sweep_results(spec: SweepProgramSpec, final: np.ndarray, slashed: np.ndarray,

@@ -3,24 +3,23 @@
 
 A :class:`Scenario` is a factory: it scales to any node count and builds
 the ``(nodes, SwarmConfig)`` pair or a ready-to-run swarm on either engine.
-The eight scenarios of the centralized synchronous round, the three of the
-decentralized round, the two custody scenarios and the three async ones
-are registered here; the reference's two economy scenarios need the
-economy lane, and :func:`get_scenario` of one raises
-``NotImplementedError`` naming its ROADMAP queue 1 item
-(``WAITING_SCENARIOS``).  :func:`scenario_campaign`
-runs one scenario across seeds as one campaign (``swarm.run_campaign``).
+Every scenario of the reference is registered here: the eight of the
+centralized synchronous round, the three of the decentralized round, the
+two custody scenarios, the three async ones and the two economy ones.
+:func:`scenario_campaign` runs one scenario across seeds as one campaign
+(``swarm.run_campaign``).
 
 :class:`SweepGrid` names the §5.5 derailment phase-diagram grids that
-``core.derailment.sweep`` consumes.  Every grid of the reference is
-registered, as data; a grid that sets an economy field (item 10) raises
-that item when it is swept.  The reference's serving grids wait for item 12.
+``core.derailment.sweep`` consumes: every grid of the reference, the
+economy grids included.  The reference's serving grids wait for ROADMAP
+queue 1, item 12.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
+from repro_torch.core.economy import EconomyConfig
 from repro_torch.core.swarm import (
     NodeSpec,
     SwarmConfig,
@@ -66,10 +65,8 @@ class Scenario:
 SCENARIOS: Dict[str, Scenario] = {}
 
 #: the reference's scenarios that need a later axis of the round -> the
-#: ROADMAP queue 1 item each waits for
-WAITING_SCENARIOS: Dict[str, int] = {
-    "economy_rational": 10, "economy_sybil_adaptive": 10,
-}
+#: ROADMAP queue 1 item each waits for (none: every axis is ported)
+WAITING_SCENARIOS: Dict[str, int] = {}
 
 
 def register_scenario(scenario: Scenario) -> Scenario:
@@ -342,6 +339,43 @@ register_scenario(Scenario(
 ))
 
 register_scenario(Scenario(
+    name="economy_rational",
+    description=("The §4 incentive control: a 25% inner-product coalition "
+                 "buys identities from one capital budget (identity cost "
+                 "1.0, bond 5.0) against CenteredClip + p_check=0.5 audits, "
+                 "while fees and rewards pay honest stakes — the schedule "
+                 "the paper argues sustains rational participation.  "
+                 "Admission is stake-gated on the device; slashed or "
+                 "insolvent nodes drop out of aggregation for good."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, n // 4), "inner_product", 20.0),
+    make_config=lambda seed: SwarmConfig(
+        aggregator="centered_clip",
+        verification=VerificationConfig(p_check=0.5, stake=5.0,
+                                        tolerance=1e-3, jackpot=5.0),
+        economy=EconomyConfig(),
+        seed=seed),
+))
+
+register_scenario(Scenario(
+    name="economy_sybil_adaptive",
+    description=("Sybil pressure meets an adaptive adversary (§4 x §5.5): "
+                 "identities are cheap (cost 0.1), so the coalition's "
+                 "budget buys a count majority, and instead of a fixed "
+                 "behaviour it best-responds each round — scoring a menu "
+                 "of attack scales against the known aggregator and "
+                 "submitting the one that pushes the aggregate hardest "
+                 "against honest descent.  Sparse audits (p_check=0.1) "
+                 "price what adaptivity buys that fixed attacks don't."),
+    make_nodes=lambda n: _mixed_nodes(n, max(1, n // 2), "inner_product", 20.0),
+    make_config=lambda seed: SwarmConfig(
+        aggregator="centered_clip",
+        verification=VerificationConfig(p_check=0.1, stake=5.0,
+                                        tolerance=1e-3, jackpot=5.0),
+        economy=EconomyConfig(identity_cost=0.1, adaptive=True),
+        seed=seed),
+))
+
+register_scenario(Scenario(
     name="partitioned_swarm",
     description=("Near-partition stress (§5.5): two ring clusters joined "
                  "by a single bridge edge (near-zero spectral gap).  "
@@ -428,8 +462,9 @@ class SweepGrid:
 
     Every field of the reference's grid is here, so every grid registers
     as data.  ``identity_costs`` / ``fees`` / ``reward_schedules`` /
-    ``adaptive`` with the ``econ_*`` knobs are the economy axes (item 10):
-    a grid that sets one raises its item when it is swept."""
+    ``adaptive`` with the ``econ_*`` knobs are the economy axes: a grid
+    that sets one gives every lane an economy, the attacker slots its
+    coalition, funded from the grid's one budget."""
     name: str
     description: str
     regimes: Tuple[Regime, ...]

@@ -71,8 +71,18 @@ against the same snapshot, so staleness alone never slashes.  The round
 never writes into a tensor it was given, so a slot holds its round's param
 dict by reference, with no copy.
 
-The economy lane (ROADMAP queue 1, item 10) and a ``MeshPlan`` placement
-(item 13) raise ``NotImplementedError`` naming their item.
+**Economy lane** (paper §4 meets §5.5): ``SwarmConfig.economy`` (a
+``core.economy.EconomyConfig``; ``LaneParams.econ`` on the functional core)
+carries the stakes, balances, reward escrow and slash pool through the
+round (``SwarmState.econ``).  A node takes part only while alive and
+bonded (stake-gated admission, on the device), the economy is updated
+after the slashing, and ``RoundRecord.coalition_stake`` is the coalition's
+share of the kept stake.  On an adaptive lane the coalition best-responds
+each round: it scores ``economy.ADAPTIVE_SCALES`` against the aggregator
+and submits the winner.
+
+A ``MeshPlan`` placement (ROADMAP queue 1, item 13) raises
+``NotImplementedError`` naming its item.
 """
 from __future__ import annotations
 
@@ -85,7 +95,8 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch.core import aggregation, compression, gossip, topology
+from repro_torch.core import aggregation, compression, economy, gossip, topology
+from repro_torch.core.economy import EconomyConfig, EconState
 from repro_torch.core.ledger import Ledger
 from repro_torch.core.unextractable import (
     CustodyConfig,
@@ -179,13 +190,11 @@ class SwarmConfig:
     #: snapshots and lets each node take its gradient at a delayed one
     #: (``NodeSpec.delay``).  0 is the synchronous round, code path and all.
     staleness_bound: int = 0
-    #: the economy lane; a non-default value waits for its slice
-    economy: Optional[Any] = None
-
-    def __post_init__(self):
-        if self.economy is not None:
-            raise NotImplementedError("SwarmConfig.economy is not ported yet "
-                                      "(ROADMAP queue 1, item 10)")
+    #: the economy lane (``core.economy.EconomyConfig``): stakes, balances,
+    #: reward escrow and slash pool carried through the round, stake-gated
+    #: admission and (``adaptive=True``) the coalition's best response.
+    #: The coalition is the roster's byzantine slots.  None = no economy.
+    economy: Optional[EconomyConfig] = None
 
 
 def corrupt(kind: str, grad_flat: torch.Tensor, honest_mean: torch.Tensor,
@@ -256,9 +265,9 @@ class LaneParams(NamedTuple):
     per-node maximum delays, a CPU tensor (the delays are drawn on the
     host), read only by rounds built with ``staleness_bound > 0``.  None
     disables each; all lanes of a campaign agree, as for ``mixing``.
-    ``econ`` (item 10) is the reference's economy axis: a lane carrying it
-    raises ``NotImplementedError`` naming its ROADMAP queue 1 item wherever
-    the engine meets it."""
+    ``econ`` is the economy lane, an ``economy.EconParams`` (its scalars
+    (L,) tensors, its coalition (L, N) and ``adaptive`` a host tuple when
+    stacked); None disables it, and all lanes agree."""
     codes: torch.Tensor       # (N,) int32 behaviour codes (BEHAVIOUR_CODES)
     scales: torch.Tensor      # (N,) f32 byzantine scales
     speeds: torch.Tensor      # (N,) f32 capacity -> minted shares per kept round
@@ -293,19 +302,9 @@ class LaneParams(NamedTuple):
             numeric_noise=self.numeric_noise[k],
             agg_kwargs={name: v[k] for name, v in self.agg_kwargs.items()},
             agg_id=self.agg_ids[k],
+            econ=None if self.econ is None else economy.EconParams(*(x[k] for x in self.econ)),
             **{f: None if getattr(self, f) is None else getattr(self, f)[k]
                for f in ("mixing", "custody", "coalition", "delays")})
-
-
-#: the reference's later lane axes -> the ROADMAP queue 1 item each waits for
-_LATER_AXES = (("econ", 10),)
-
-
-def _refuse_later_axes(lane: LaneParams) -> None:
-    for name, item in _LATER_AXES:
-        if getattr(lane, name) is not None:
-            raise NotImplementedError(
-                f"LaneParams.{name} is not ported yet (ROADMAP queue 1, item {item})")
 
 
 class SwarmState(NamedTuple):
@@ -319,6 +318,8 @@ class SwarmState(NamedTuple):
     ring: Any = None          # async rounds: a tuple of K+1 param dicts, slot
                               # r % (K+1) the params as of the start of round r
                               # (held by reference); None in synchronous rounds
+    econ: Optional[EconState] = None   # economy lanes: the stakes, balances,
+                              # escrow and pools; None without an economy lane
 
 
 class RoundRecord(NamedTuple):
@@ -331,6 +332,9 @@ class RoundRecord(NamedTuple):
     consensus_err: torch.Tensor   # 0 in centralized rounds
     coverage: torch.Tensor        # 1.0 without a custody lane
     staleness: torch.Tensor       # 0 in synchronous rounds
+    coalition_stake: Optional[torch.Tensor] = None  # economy lanes: the
+                              # coalition's share of the kept nodes' stake
+                              # after the round; None without an economy lane
 
 
 def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
@@ -346,7 +350,8 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
     (run seeds never reshuffle who holds what) and marks the coalition as
     the last ``ceil(coalition_fraction * N)`` roster slots.
     ``cfg.staleness_bound > 0`` fills ``delays`` with each node's
-    ``effective_delay`` clamped to the bound."""
+    ``effective_delay`` clamped to the bound.  ``cfg.economy`` fills
+    ``econ``, the roster's byzantine slots the coalition."""
     v = cfg.verification
 
     def t(vals, dtype):
@@ -390,6 +395,8 @@ def lane_for_nodes(nodes: Sequence[NodeSpec], cfg: SwarmConfig,
         custody=custody,
         coalition=coalition,
         delays=delays,
+        econ=(None if cfg.economy is None else cfg.economy.params_for(
+            [n.byzantine is not None for n in nodes], device)),
     )
 
 
@@ -432,18 +439,19 @@ def stack_lanes(lanes: Sequence[LaneParams],
     ``agg_ids``.  All lanes must share N and the ``agg_kwargs`` keys, and
     agree on ``mixing``: all None (centralized) or all same-shaped
     matrices (decentralized), and likewise on ``custody`` / ``coalition``
-    (moved to ``device``) and on ``delays`` (stacked on the CPU)."""
+    (moved to ``device``), on ``delays`` (stacked on the CPU) and on
+    ``econ`` (its tensors stacked on ``device``, ``adaptive`` a host
+    tuple)."""
     lanes = list(lanes)
     if not lanes:
         raise ValueError("stack_lanes needs at least one lane")
     for lane in lanes:
-        _refuse_later_axes(lane)
         if lane.agg_ids is not None:
             raise ValueError("stack_lanes stacks single-run lanes, not campaigns")
     keys = set(lanes[0].agg_kwargs)
     if any(set(lane.agg_kwargs) != keys for lane in lanes):
         raise ValueError("every lane of a campaign needs the same agg_kwargs keys")
-    for f in ("mixing", "custody", "coalition", "delays"):
+    for f in ("mixing", "custody", "coalition", "delays", "econ"):
         if any((getattr(lane, f) is None) != (getattr(lanes[0], f) is None)
                for lane in lanes):
             raise ValueError(f"every lane of a campaign must agree on {f} "
@@ -478,7 +486,11 @@ def stack_lanes(lanes: Sequence[LaneParams],
         coalition=(None if lanes[0].coalition is None
                    else stacked(lane.coalition for lane in lanes).bool()),
         delays=(None if lanes[0].delays is None else torch.stack(
-            [torch.as_tensor(lane.delays, dtype=torch.int32).cpu() for lane in lanes])))
+            [torch.as_tensor(lane.delays, dtype=torch.int32).cpu() for lane in lanes])),
+        econ=(None if lanes[0].econ is None else economy.EconParams(**{
+            f: (tuple(int(lane.econ.adaptive) for lane in lanes) if f == "adaptive"
+                else stacked(getattr(lane.econ, f) for lane in lanes))
+            for f in economy.EconParams._fields})))
 
 
 def init_ring(params, staleness_bound: int):
@@ -494,18 +506,15 @@ def init_ring(params, staleness_bound: int):
 
 
 def init_state(params, optimizer, n_nodes: int, *, staleness_bound: int = 0,
-               econ=None) -> SwarmState:
+               econ: Optional[EconState] = None) -> SwarmState:
     """The centralized round's initial state: the params, a fresh optimizer
-    state, no node slashed, nothing minted, and with ``staleness_bound``
-    the async ring.  The economy state (item 10) is not ported yet."""
-    if econ is not None:
-        raise NotImplementedError("the economy lane is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+    state, no node slashed, nothing minted, with ``staleness_bound`` the
+    async ring, and ``econ`` (``economy.init_econ_state``) the economy."""
     dev = next(iter(params.values())).device
     return SwarmState(params=params, opt_state=optimizer.init(params),
                       slashed=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
                       contrib=torch.zeros(n_nodes, dtype=torch.float32, device=dev),
-                      ring=init_ring(params, staleness_bound))
+                      ring=init_ring(params, staleness_bound), econ=econ)
 
 
 def init_decentralized_state(params, optimizer, n_nodes: int, *,
@@ -652,6 +661,21 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
     zero-delay lane equals the synchronous round bit for bit (in the
     reference, whose async round batches the gradients differently, it is
     only close).  ``K = 0`` is the synchronous round's own code path.
+
+    A lane with ``econ`` (an economy lane; ``state.econ`` its
+    ``economy.EconState``) gates admission on the device
+    (``economy.admitted_mask``: alive and bonded), and after the slashing
+    runs ``economy.econ_round_update`` and records the coalition's share of
+    the kept stake.  On an adaptive lane (``econ.adaptive``, a host int)
+    the coalition's active slots submit ``-best · honest_mean``, ``best``
+    the ``economy.best_response_scale`` over the raw gradients, scored
+    every round with no host read.  The reference scores on every lane and
+    selects the result away on fixed lanes; the port skips it there.  The
+    scorer is the attacker's model of the defense: on the CPU the
+    reference's unfused masked aggregators, even in a fused round; on the
+    card the lane's own aggregator by the round's own route
+    (``fused_by_agg``), so that a CenteredClip lane scores through the
+    median and chain kernels.  An economy lane needs a centralized round.
     """
     if isinstance(aggregator, str):
         agg_specs = [(aggregator, dict(agg_kwargs or {}))]
@@ -692,11 +716,15 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
                  else aggregation.get_masked_aggregator)(name, **kw),
                 _accepted_kwargs(name) - set(kw), f)
                for (name, kw), f in zip(agg_specs, fused_by_agg)]
+    # the adaptive coalition's model of the defense (economy lanes)
+    score_fns = agg_fns if on_card else [
+        (aggregation.get_masked_aggregator(name, **kw), _accepted_kwargs(name) - set(kw), False)
+        for name, kw in agg_specs]
 
-    def aggregate(lane: LaneParams, stack, mask):
+    def aggregate(lane: LaneParams, stack, mask, fns=agg_fns):
         if not route_kwargs:
-            return agg_fns[0][0](stack, mask, **lane.agg_kwargs)
-        fn, accepted, _ = agg_fns[int(lane.agg_id)]
+            return fns[0][0](stack, mask, **lane.agg_kwargs)
+        fn, accepted, _ = fns[int(lane.agg_id)]
         return fn(stack, mask, **{k: v for k, v in sorted(lane.agg_kwargs.items())
                                   if k in accepted})
 
@@ -741,6 +769,19 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         dev = state.slashed.device
         n = n_nodes
         active = (lane.joins <= rnd) & (rnd < lane.leaves) & ~state.slashed
+        econ = lane.econ
+        if econ is not None:
+            if decentralized:
+                raise ValueError("economy lanes need a centralized round "
+                                 "(stake-gated admission and the fee market "
+                                 "assume one aggregate)")
+            if state.econ is None:
+                raise ValueError("economy lane without SwarmState.econ — "
+                                 "init the state with "
+                                 "economy.init_econ_state(lane.econ, n)")
+            # stake-gated admission from the live stakes: a node not admitted
+            # drops out of audits, aggregation and minting alike
+            active = active & economy.admitted_mask(econ, state.econ)
         maskf = active.float()
         nact = torch.sum(maskf)
         rr = RoundRandom(lane.seed, rnd, dev, draws)
@@ -776,15 +817,26 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
             flatten_into(gf[i], _node_gradient(loss_fn, params_i, batches[i]))
         del snapshot
 
-        # 2. corruption
+        # 2. corruption (an economy lane's best response needs the honest
+        # mean whatever the codes)
         honest_mean = None
-        if BEHAVIOUR_CODES["inner_product"] in codes:
+        if econ is not None or BEHAVIOUR_CODES["inner_product"] in codes:
             acc = torch.zeros(d_total, dtype=torch.float32, device=dev)
             for i in range(n):
                 acc = acc + gf[i] * maskf[i]
             honest_mean = acc / torch.clamp(nact, min=1.0)
         corrupted = _corrupt_all(codes, gf, honest_mean, lane.scales,
                                  lambda i: rr.corrupt(i, d_total))
+        if econ is not None and econ.adaptive:
+            # the adaptive coalition's best response: one (N, D) buffer for
+            # the scored stacks, then its submissions
+            coal_act = econ.coalition & active
+            buf = torch.empty_like(gf)
+            best = economy.best_response_scale(
+                lambda x, m: aggregate(lane, x, m, score_fns), gf, honest_mean,
+                coal_act, active, buf=buf)
+            corrupted = torch.where(coal_act[:, None], -best * honest_mean[None, :],
+                                    corrupted, out=buf)
 
         # 3 + 4. the wire, and the audits of the selected nodes: node i's
         # uniforms feed its payload and the auditor's recomputation alike
@@ -866,15 +918,27 @@ def make_round_fn(loss_fn: Callable, optimizer, params_template, n_nodes: int, *
         # of its holders is active (departed or slashed holders drop out)
         coverage = (zero + 1.0 if lane.custody is None
                     else coverage_frac(lane.custody, active))
+
+        # the economy, after the slashing
+        new_econ, coalition_stake = state.econ, None
+        if econ is not None:
+            new_econ = economy.econ_round_update(econ, state.econ, active=active, keep=keep,
+                                                 caught=caught, speeds=lane.speeds)
+            kept_stake = new_econ.stake * keep.float()
+            act_stake = torch.sum(kept_stake)
+            coal_stake = torch.sum(kept_stake * econ.coalition.float())
+            coalition_stake = torch.where(act_stake > 0.0,
+                                          coal_stake / torch.clamp(act_stake, min=1e-9), zero)
         new_state = SwarmState(
             params=new_params, opt_state=new_opt,
             slashed=state.slashed | caught,
-            contrib=state.contrib + lane.speeds * keep.float(), ring=ring)
+            contrib=state.contrib + lane.speeds * keep.float(), ring=ring, econ=new_econ)
         rec = RoundRecord(
             n_active=torch.sum(active).to(torch.int32),
             n_byzantine=torch.sum(active & (lane.codes > 0)).to(torch.int32),
             caught=caught, keep=keep, agg_norm=agg_norm,
-            consensus_err=consensus_err, coverage=coverage, staleness=staleness)
+            consensus_err=consensus_err, coverage=coverage, staleness=staleness,
+            coalition_stake=coalition_stake)
         return new_state, rec
 
     round_fn.fused_by_agg = fused_by_agg      # resolved choice, inspectable
@@ -898,7 +962,6 @@ def scan_rounds(round_fn: Callable, lane: LaneParams, state: SwarmState,
     final params (0-d for a single loss; a campaign's custody eval gives an
     (honest, extracted) pair), computed under ``torch.no_grad()`` (0
     without an ``eval_fn``)."""
-    _refuse_later_axes(lane)
     if rounds < 1:
         raise ValueError(f"scan_rounds needs rounds >= 1, got {rounds}")
     recs = []
@@ -925,14 +988,11 @@ def make_scan_program(round_fn: Callable, batch_fn: Callable, rounds: int,
     final_loss)``, ``ring`` the async round's (:func:`init_ring`).  The
     reference donates the carries to XLA; here nothing is donated or needs
     to be: the round is functional, so the engine never writes into the
-    caller's ``params``, ``opt_state`` or ``ring`` and makes its own new
-    carries each round.  ``econ`` (item 10) is not ported yet."""
+    caller's ``params``, ``opt_state``, ``ring`` or ``econ`` (the economy
+    lane's ``EconState``) and makes its own new carries each round."""
     def run(lane: LaneParams, params, opt_state, slashed, contrib, ring=None, econ=None):
-        if econ is not None:
-            raise NotImplementedError("the economy state is not ported yet "
-                                      "(ROADMAP queue 1, item 10)")
         state = SwarmState(params=params, opt_state=opt_state, slashed=slashed,
-                           contrib=contrib, ring=ring)
+                           contrib=contrib, ring=ring, econ=econ)
         return scan_rounds(round_fn, lane, state, rounds, batch_fn, eval_fn)
     return run
 
@@ -969,7 +1029,10 @@ def run_campaign(loss_fn: Callable, params0, optimizer, data_fn: Callable,
     every round records the live coverage, and the eval also runs the
     reconstruct-attack, so each lane's final loss is the pair (honest,
     extracted), the loss of the model reassembled from exactly the shards
-    the lane's coalition holds (final losses (L, 2)).  This
+    the lane's coalition holds (final losses (L, 2)).  Economy mode is read
+    from ``lanes.econ``: each lane starts from its own
+    ``economy.init_econ_state`` and its final ``EconState`` is returned in
+    the state's ``econ``, each field (L, ...).  This
     first cut loops over the lanes on the host, each lane
     :func:`scan_rounds` from a fresh initial state; lane k equals the
     single-run :class:`Swarm` of the same roster and config bit for bit.  ``draws_fn(k, rnd)`` hands lane k
@@ -977,8 +1040,7 @@ def run_campaign(loss_fn: Callable, params0, optimizer, data_fn: Callable,
 
     ``fast_compile`` is the reference's XLA option and a no-op here: there
     is nothing to compile.  ``plan`` (a ``MeshPlan``) waits for the
-    distributed layer (item 13), and a lane carrying a later axis raises
-    its item.
+    distributed layer (item 13).
 
     Returns ``(SwarmState, RoundRecord, final losses)`` with a leading L
     axis on every leaf: records (L, T, ...), final losses (L,) or (L, 2).
@@ -1011,7 +1073,7 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
     """Build (without running) the campaign that :func:`run_campaign`
     runs: ``fn(lanes) -> (SwarmState, RoundRecord, final losses)``.
     ``lanes`` is read for its structure only (N, decentralized or not,
-    custody or not, the ring's size, the later axes).  The
+    custody or not, the ring's size).  The
     resolved fused choice is ``fn.fused`` and ``fn.fused_by_agg``.
 
     Each lane's outputs are copied into preallocated (L, ...) tensors as
@@ -1022,7 +1084,6 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
                                   "(ROADMAP queue 1, item 13)")
     if lanes.n_lanes is None:
         raise ValueError("run_campaign takes a stacked campaign (stack_lanes)")
-    _refuse_later_axes(lanes)
     n = int(lanes.codes.shape[-1])
     decentralized = lanes.mixing is not None
     has_custody = lanes.custody is not None
@@ -1057,9 +1118,10 @@ def make_campaign_program(loss_fn: Callable, params0, optimizer,
         out = None
         for k in range(lanes.n_lanes):
             lane = lanes.lane(k)
-            run = scan_rounds(round_fn, lane,
-                              init(params0, optimizer, n, staleness_bound=staleness_bound),
-                              rounds, batch_fn,
+            state0 = init(params0, optimizer, n, staleness_bound=staleness_bound)
+            if lane.econ is not None:
+                state0 = state0._replace(econ=economy.init_econ_state(lane.econ, n))
+            run = scan_rounds(round_fn, lane, state0, rounds, batch_fn,
                               None if eval_fn is None else functools.partial(lane_eval, lane),
                               draws_fn=None if draws_fn is None
                               else functools.partial(draws_fn, k))
@@ -1087,7 +1149,7 @@ def history_from_records(recs: Union[RoundRecord, Sequence[RoundRecord]],
                                      start_round=start_round + t)[0]
                 for t, r in enumerate(recs)]
     host = tree_map(lambda x: x.cpu().numpy(), recs)
-    return [{
+    out = [{
         "round": start_round + t,
         "n_active": int(host.n_active[t]),
         "n_byzantine": int(host.n_byzantine[t]),
@@ -1097,6 +1159,10 @@ def history_from_records(recs: Union[RoundRecord, Sequence[RoundRecord]],
         "coverage": float(host.coverage[t]),
         "staleness": float(host.staleness[t]),
     } for t in range(host.agg_norm.shape[0])]
+    if host.coalition_stake is not None:
+        for t, row in enumerate(out):
+            row["coalition_stake"] = float(host.coalition_stake[t])
+    return out
 
 
 def ledger_from_run(state: SwarmState, node_ids: Sequence[str],
@@ -1206,7 +1272,10 @@ class Swarm(_SwarmBase):
     :meth:`eval_params` returns the consensus (node-mean) replica.
     ``cfg.staleness_bound`` runs the async round, the engine carrying its
     snapshot ring from step to step (rounds then step from 0 in order);
-    ``cfg.custody`` records the coverage each round.
+    ``cfg.custody`` records the coverage each round; ``cfg.economy``
+    carries the ``EconState`` (``_econ_state``) from step to step, and the
+    history rows, whose ``n_active`` is the device record's (admission is
+    gated by stakes), gain ``coalition_stake``.
     """
 
     def __init__(self, loss_fn: Callable, params, optimizer,
@@ -1240,6 +1309,9 @@ class Swarm(_SwarmBase):
         #: the async round's snapshot ring (None when synchronous), engine
         #: state like params and opt_state, advanced by every round
         self._ring = init_ring(self.params, cfg.staleness_bound)
+        #: the economy state (None without an economy lane), likewise
+        self._econ_state = (economy.init_econ_state(self._lane.econ, n)
+                            if self._lane.econ is not None else None)
 
     @property
     def fused(self) -> bool:
@@ -1249,7 +1321,7 @@ class Swarm(_SwarmBase):
         return SwarmState(
             params=self.params, opt_state=self.opt_state,
             slashed=torch.as_tensor(self._slashed_np, device=self.device),
-            contrib=self.contrib, ring=self._ring)
+            contrib=self.contrib, ring=self._ring, econ=self._econ_state)
 
     def step(self, rnd: int, draws: Optional[RoundDraws] = None) -> dict:
         active_np = ((self._joins_np <= rnd) & (rnd < self._leaves_np)
@@ -1259,7 +1331,7 @@ class Swarm(_SwarmBase):
         batches = [self.data_fn(i, rnd) for i in range(len(self.nodes))]
         state, rec = self._core(self._lane, self._state(), rnd, batches, draws)
         self.params, self.opt_state = state.params, state.opt_state
-        self.contrib, self._ring = state.contrib, state.ring
+        self.contrib, self._ring, self._econ_state = state.contrib, state.ring, state.econ
         row = history_from_records([rec], [n.node_id for n in self.nodes],
                                    start_round=rnd)[0]
         for i in np.flatnonzero(rec.caught.cpu().numpy()):

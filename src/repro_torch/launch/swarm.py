@@ -9,6 +9,8 @@ twin of ``examples/swarm_byzantine_training.py``.
         --nodes 10 --rounds 2                          # any registered scenario
     python -m repro_torch.launch.swarm --full --scenario stale_poisoning \
         --rounds 4                                     # the async round
+    python -m repro_torch.launch.swarm --full --scenario economy_sybil_adaptive \
+        --rounds 3                                     # the economy lane
 
 The "showcase" roster exercises the five §3 properties and the §4
 incentives at once: 10 heterogeneous nodes (speeds 0.5-3x, two join late,
@@ -25,7 +27,9 @@ the decentralized ones (``gossip_ring_honest``, ``byzantine_neighborhood``,
 replica is what the loss column evaluates; the async ones
 (``straggler_majority``, ``stale_poisoning``, ``async_churn``) on the
 bounded-staleness round, the custody ones (``custody_leech``,
-``custody_churn_collapse``) with their coverage trace.  As the reference,
+``custody_churn_collapse``) with their coverage trace, the economy ones
+(``economy_rational``, ``economy_sybil_adaptive``) with stake-gated
+admission and, in the second, the coalition's best response.  As the reference,
 it ends with a custody-sharded checkpoint of the trained params (the
 consensus replica of a decentralized run) in ``--ckpt``: 16 shards,
 redundancy 2, no holder over 40% of the model, over the nodes not

@@ -116,6 +116,8 @@ def problem():
 
 
 def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a is None or b is None:           # a record field of an axis not in the run
+        return a is b
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
         a.view(torch.int32) if a.dtype == torch.float32 else a,
         b.view(torch.int32) if b.dtype == torch.float32 else b)
@@ -246,7 +248,8 @@ def test_zero_delay_async_round_is_the_synchronous_round(problem):
     b = tswarm.run_campaign(loss_fn, params0, topt.SGD(lr=0.1, momentum=0.9), data_fn,
                             lanes, **kw)
     for field in tswarm.RoundRecord._fields:
-        assert _bits(getattr(a[1], field)[0], getattr(b[1], field)[0]), field
+        assert _bits(getattr(tswarm.lane_slice(a[1], 0), field),
+                     getattr(tswarm.lane_slice(b[1], 0), field)), field
     assert _bits(a[0].params["w"][0], b[0].params["w"][0]) and _bits(a[2][0], b[2][0])
     assert float(b[1].staleness[1].max()) > 0
 

@@ -136,6 +136,8 @@ def _scan_run(problem, nodes, cfg, rounds):
 
 
 def _bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a is None or b is None:           # a record field of an axis not in the run
+        return a is b
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
         a.view(torch.int32) if a.dtype == torch.float32 else a,
         b.view(torch.int32) if b.dtype == torch.float32 else b)
@@ -230,7 +232,8 @@ def _single(problem, nodes, rounds, name, static_kw):
 def _assert_lane_equal(out, k, single):
     (state, recs, final), (s1, r1, f1) = out, single
     for field in tswarm.RoundRecord._fields:
-        assert _bits(getattr(recs, field)[k], getattr(r1, field)[0]), field
+        assert _bits(getattr(tswarm.lane_slice(recs, k), field),
+                     getattr(tswarm.lane_slice(r1, 0), field)), field
     assert _bits(state.params["w"][k], s1.params["w"][0])
     assert _bits(final[k], f1[0])
 
@@ -370,8 +373,8 @@ def test_unported_campaign_options_raise(problem):
         tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, lanes, plan=object(), **kw)
     with pytest.raises(ValueError, match="agree on mixing"):
         tswarm.stack_lanes([single, single._replace(mixing=torch.eye(2))])
-    # the custody (item 7) and async (item 9) lanes stack and run; the
-    # economy lane (item 10) raises
+    # the custody (item 7), async (item 9) and economy (item 10) lanes stack
+    # and run, the economy's final state returned a lane
     later = {"custody": torch.ones(2, 3, dtype=torch.bool),
              "coalition": torch.tensor([False, True]),
              "delays": torch.tensor([0, 2], dtype=torch.int32)}
@@ -384,15 +387,25 @@ def test_unported_campaign_options_raise(problem):
     _, recs, final = tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, stacked,
                                          eval_fn=problem[1][3], **kw)
     assert final.shape == (2, 2) and (recs.coverage == 1.0).all()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tswarm.stack_lanes([single._replace(econ=torch.ones(2))])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn,
-                            lanes._replace(econ=torch.ones(1, 2)), **kw)
+    from repro_torch.core import economy as tecon
+    econ_lanes = [single._replace(econ=tecon.EconomyConfig(budget=b, adaptive=a).params_for(
+        [False, True])) for b, a in ((5.5, False), (50.0, True))]
+    with pytest.raises(ValueError, match="agree on econ"):
+        tswarm.stack_lanes([single, econ_lanes[0]])
+    stacked = tswarm.stack_lanes(econ_lanes)
+    assert stacked.econ.adaptive == (0, 1) and stacked.econ.coalition.shape == (2, 2)
+    state, recs, _ = tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, stacked, **kw)
+    assert recs.coalition_stake.shape == (2, 2) and state.econ.stake.shape == (2, 2)
+    for k, lane in enumerate(econ_lanes):
+        st = tswarm.init_state(params0, _sgd(topt), 2, econ=tecon.init_econ_state(lane.econ, 2))
+        for r in range(2):
+            st, _ = tswarm.make_round_fn(loss_fn, _sgd(topt), params0, 2, aggregator="mean")(
+                lane, st, r, [data_fn(i, r) for i in range(2)])
+        for field, x in zip(tecon.EconState._fields, st.econ):
+            assert _bits(getattr(state.econ, field)[k], x), (k, field)
+    assert state.econ.alive.tolist() == [[True, False], [True, True]]  # 5.5 buys no identity
     state = tswarm.init_state(params0, _sgd(topt), 2, staleness_bound=2)
     assert len(state.ring) == 3 and all(slot is params0 for slot in state.ring)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tswarm.init_state(params0, _sgd(topt), 2, econ=object())
     with pytest.raises(ValueError, match="stacked campaign"):
         tswarm.run_campaign(loss_fn, params0, _sgd(topt), data_fn, single, **kw)
     # the reference's XLA option is accepted and changes nothing

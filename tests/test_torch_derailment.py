@@ -12,8 +12,9 @@
 - each sweep lane equals the port's own ``simulate_derailment``, on both
   engines;
 - ``attack_cost`` and ``no_off_report`` render the reference's strings;
-- the economy axes, its scenarios and ``plan`` raise their items; the
-  topology (item 8), custody (7) and staleness (9) grids build and sweep.
+- ``plan`` raises its item; the topology (item 8), custody (7), staleness
+  (9) and economy (10) grids build and sweep, and the economy scenarios
+  build.
 """
 import importlib.util
 from pathlib import Path
@@ -33,12 +34,11 @@ from repro_torch.core.verification import VerificationConfig as TVer
 from repro_torch.launch import problems
 
 ROOT = Path(__file__).resolve().parents[1]
-# the grids of the reference's later axes -> the ROADMAP queue 1 item each
-# waits for; None: the axis is ported (topologies item 8, custody 7,
-# staleness 9) and the grid builds
-LATER_GRIDS = {"no_off_topology_smoke": None, "no_off_topology": None,
-               "no_off_async_smoke": None, "no_off_async": None, "custody_smoke": None,
-               "custody_frontier": None, "no_off_economy_smoke": 10, "no_off_economy": 10}
+# the grids of the reference's later axes, every axis ported (topologies
+# item 8, custody 7, staleness 9, economy 10): each grid builds and sweeps
+LATER_GRIDS = ("no_off_topology_smoke", "no_off_topology", "no_off_async_smoke",
+               "no_off_async", "custody_smoke", "custody_frontier", "no_off_economy_smoke",
+               "no_off_economy")
 
 
 def _examples_common():
@@ -231,45 +231,43 @@ def test_attack_cost_and_report_render_as_the_reference():
 
 @pytest.mark.parametrize("grid", sorted(LATER_GRIDS))
 def test_later_axis_grids_raise_their_item(quadratic, grid):
-    """A grid of a waiting axis raises its item; a grid of a ported axis
-    builds its lanes (one mixing matrix a topology, one set of delay caps a
-    staleness bound, one custody matrix and coalition a custody cell) and
-    sweeps."""
+    """A grid of a later axis builds its lanes (one mixing matrix a
+    topology, one set of delay caps a staleness bound, one custody matrix
+    and coalition a custody cell, one economy a cell of the economy axes)
+    and sweeps."""
     tl, tp, td, te, to = quadratic[1]
     g = tscen.get_sweep_grid(grid)
-    if LATER_GRIDS[grid] is None:
-        spec = tder.build_sweep_lanes(g)
-        assert len(spec.lanes) == g.n_lanes
-        n = spec.n_total
-        assert {m[1] for m in spec.metas} == set(g.topologies or ("",))
-        assert {m[2] for m in spec.metas} == set(g.staleness_bounds or (0,))
-        for lane in spec.lanes:
-            assert (lane.mixing is None) == (not g.topologies)
-            assert lane.mixing is None or lane.mixing.shape == (n, n)
-            assert (lane.delays is None) == (not g.staleness_bounds)
-            assert lane.delays is None or lane.delays.max() in g.staleness_bounds
-            assert (lane.custody is None) == (not g.has_custody)
-            assert lane.custody is None or lane.custody.shape == (n, g.num_shards)
-        res = tder.sweep(tl, tp, to, td, te, g, rounds=1)
-        assert {r.topology for r in res.results} == set(g.topologies or ("",))
-        assert {r.staleness_bound for r in res.results} == set(g.staleness_bounds or (0,))
-        assert {r.redundancy for r in res.results} == set(g.redundancies or (0,))
-        assert all(np.isfinite(r.final_loss) for r in res.results)
-        assert all(np.isfinite(r.extracted_loss) == g.has_custody for r in res.results)
-        return
-    with pytest.raises(NotImplementedError, match=f"item {LATER_GRIDS[grid]}"):
-        tder.build_sweep_lanes(g)
-    with pytest.raises(NotImplementedError, match=f"item {LATER_GRIDS[grid]}"):
-        tder.sweep(tl, tp, to, td, te, g, rounds=1)
+    spec = tder.build_sweep_lanes(g)
+    assert len(spec.lanes) == g.n_lanes
+    n = spec.n_total
+    assert {m[1] for m in spec.metas} == set(g.topologies or ("",))
+    assert {m[2] for m in spec.metas} == set(g.staleness_bounds or (0,))
+    for lane in spec.lanes:
+        assert (lane.mixing is None) == (not g.topologies)
+        assert lane.mixing is None or lane.mixing.shape == (n, n)
+        assert (lane.delays is None) == (not g.staleness_bounds)
+        assert lane.delays is None or lane.delays.max() in g.staleness_bounds
+        assert (lane.custody is None) == (not g.has_custody)
+        assert lane.custody is None or lane.custody.shape == (n, g.num_shards)
+        assert (lane.econ is None) == (not g.has_economy)
+        assert lane.econ is None or lane.econ.coalition.shape == (n,)
+    res = tder.sweep(tl, tp, to, td, te, g, rounds=1)
+    assert {r.topology for r in res.results} == set(g.topologies or ("",))
+    assert {r.staleness_bound for r in res.results} == set(g.staleness_bounds or (0,))
+    assert {r.redundancy for r in res.results} == set(g.redundancies or (0,))
+    assert all(np.isfinite(r.final_loss) for r in res.results)
+    assert all(np.isfinite(r.extracted_loss) == g.has_custody for r in res.results)
+    assert len(res.econ_results) == (g.n_points if g.has_economy else 0)
+    assert {r.identity_cost for r in res.econ_results} == set(g.identity_costs)
 
 
 def test_unported_scenarios_and_options_raise(quadratic):
-    assert set(tscen.list_scenarios()) | set(tscen.WAITING_SCENARIOS) == \
-        set(jscen.list_scenarios())
-    assert not set(tscen.list_scenarios()) & set(tscen.WAITING_SCENARIOS)
-    for name, item in tscen.WAITING_SCENARIOS.items():
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tscen.get_scenario(name)
+    assert tscen.list_scenarios() == jscen.list_scenarios() and not tscen.WAITING_SCENARIOS
+    for name in ("economy_rational", "economy_sybil_adaptive"):
+        nodes, cfg = tscen.get_scenario(name).build(8, seed=3)
+        jnodes, jcfg = jscen.get_scenario(name).build(8, seed=3)
+        assert [n.__dict__ for n in nodes] == [n.__dict__ for n in jnodes]
+        assert vars(cfg.economy) == vars(jcfg.economy) and cfg.seed == jcfg.seed == 3
     with pytest.raises(KeyError, match="registered"):
         tscen.get_scenario("nope")
     tl, tp, td, te, to = quadratic[1]
@@ -278,10 +276,8 @@ def test_unported_scenarios_and_options_raise(quadratic):
         tder.sweep(tl, tp, to, td, te, grid, plan=object())
     res = tder.SweepResult(grid=grid, results=[], n_programs=1, n_runs=0, wall_s=1.0)
     assert res.extractability_table() == "(no custody axis in this sweep)"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        res.economy_phase_table("mean")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        res.economy_adaptive_gap()
+    assert res.economy_phase_table("mean") == "cost\\fee  "
+    assert res.economy_adaptive_gap()["cells"] == 0
     # the async point (item 9) runs, its baseline at the same bound
     (jl, jp, jd, je, jo) = quadratic[0]
     kw = dict(n_honest=3, n_attack=1, rounds=4, aggregator="mean", staleness_bound=2)

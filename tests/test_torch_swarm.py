@@ -245,8 +245,10 @@ def test_model_rounds_match_reference():
 
 
 def test_unported_axes_raise():
-    """The custody (item 7) and async (item 9) axes are accepted, as the
-    reference's config takes them; the economy (item 10) still raises."""
+    """The custody (item 7), async (item 9) and economy (item 10) axes are
+    accepted, as the reference's config takes them, and ``lane_for_nodes``
+    gives the reference's lanes: the economy's knobs, its coalition the
+    roster's byzantine slots and ``adaptive`` a host int."""
     from repro.core.unextractable import CustodyConfig as JCustody
     from repro_torch.core.unextractable import CustodyConfig as TCustody
     cfg = tswarm.SwarmConfig(custody=TCustody(num_shards=4, redundancy=2),
@@ -262,8 +264,21 @@ def test_unported_axes_raise():
         custody=JCustody(num_shards=4, redundancy=2), staleness_bound=2))
     for field in ("custody", "coalition", "delays"):
         assert np.array_equal(getattr(lane, field).numpy(), np.asarray(getattr(jlane, field)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tswarm.SwarmConfig(economy=object())
+    from repro.core.economy import EconomyConfig as JEcon
+    from repro_torch.core.economy import EconomyConfig as TEcon
+    econ = dict(identity_cost=0.3, budget=17.0, adaptive=True)
+    ecfg = tswarm.SwarmConfig(economy=TEcon(**econ))
+    assert ecfg.economy == TEcon(**econ)
+    byz = nodes[:2] + [tswarm.NodeSpec("adv0", byzantine="sign_flip"),
+                       tswarm.NodeSpec("adv1", byzantine="inner_product")]
+    lane = tswarm.lane_for_nodes(byz, ecfg, torch.device("cpu"))
+    jlane = jswarm.lane_for_nodes([jswarm.NodeSpec(**n.__dict__) for n in byz],
+                                  jswarm.SwarmConfig(economy=JEcon(**econ)))
+    assert lane.econ.adaptive == int(jlane.econ.adaptive) == 1
+    for field in lane.econ._fields[:-2] + ("coalition",):
+        assert np.array_equal(getattr(lane.econ, field).numpy(),
+                              np.asarray(getattr(jlane.econ, field))), field
+    assert lane.econ.coalition.tolist() == [False, False, True, True]
     with pytest.raises(ValueError, match="unknown engine"):
         tswarm.make_swarm(None, {"w": torch.zeros(2)}, topt.SGD(), [], tswarm.SwarmConfig(),
                           None, engine="async")
