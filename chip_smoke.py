@@ -188,26 +188,49 @@ Phases, each timed with CUDA events:
    equal, losses and payoffs within 1e-4, the adaptive gap over 8 cells;
    its fixed CenteredClip lanes launch one median and chain a round, its
    adaptive ones 5 (the 4 scored scales and the round's own);
+10h. the serving sweep: ``serving_smoke`` (2 loads x 2 churn rates x 2
+   redundancies, 8 lanes of 8 requests through 3 slots, 48 steps) on the
+   1-layer protocol-125m of ``launch/serving_no_off.py``, card against CPU:
+   the availability tables equal as strings, the cells equal, one lane's
+   tokens and records equal through ``ServingEngine.run``; then the reduced
+   windowed danube (window 8, so each row's ring wraps), rwkv6 and zamba2
+   engines (float32) on one lane with a coverage outage, card against CPU,
+   tokens and records equal;
 7. the serving path (``protocol_serve``): ``python -m
    repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
    --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
    shards, redundancy 2, max fraction 0.35): refused without credentials,
    served logits bit-equal to ``Model.prefill(params)`` with the full swarm
    and with one node offline, ``ExtractionError`` at 2 nodes, a 3-node
-   coalition's extraction far from the true logits; then ``decode`` of 4
-   prompts of 4,160 tokens, 32 new tokens, on the reassembled params (equal
-   to the true ones leaf for leaf): the 4,096-slot ring wraps 64 steps
-   before the prompt ends;
+   coalition's extraction far from the true logits; then ``decode`` of the
+   first 392 tokens of 4 prompts of 4,160, 32 new tokens, on the
+   reassembled params (equal to the true ones leaf for leaf);
 7b. the ring-buffer decode against the kernel prefill across the wrap,
-   teacher-forced on the same prompts: each layer's update over the 128
-   stepped positions around the wrap, and the last position's logits,
-   within 1e-2 relative L2;
+   teacher-forced on the 4,160-token prompts (the 4,096-slot ring wraps 64
+   positions before they end): each layer's update over the 128 stepped
+   positions around the wrap, and the last position's logits, within 1e-2
+   relative L2;
 8. the kernel route against the ``_swa`` route (``use_pallas_kernels``
    off) on the same full-width prefill: teacher-forced, each layer's update
    and the last layer's logits within 1e-2 relative L2; free-running, the
    kernel route's logit gap held to at most twice the gap between two
    routes without the kernel (``_swa`` and ``swa_attention_plain``), which
    shows how far the random model's chaos parts any two float orders;
+7g. the continuous-batching engine at full width: ``python -m
+   repro_torch.launch.serve --driver engine --arch h2o-danube-1.8b --full
+   --batch 16 --slots 8 --prompt-len 64 --max-new 16`` (every request done),
+   then one custody-gated ``ServingEngine.run`` on the same model and
+   prompts (protocol_serve's custody matrix, prompts of 32-64 tokens,
+   budgets of 4-16, one arrival a step, both holders of shard 0 down over
+   steps [20, 40), 200 steps) and the same lane stepped by hand with
+   ``make_serve_step`` under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host sync inside a step), equal to the run field for field: every
+   request done, the coverage trace equal to numpy's, the dead steps
+   exactly [20, 40) with nothing admitted or delivered on them, serving
+   resumed after; the records equal to the same lane's on the CPU with the
+   reduced model; at mid-horizon, layers 0 and 1 of each occupied slot's
+   K/V within 1e-2 relative L2 of the request stepped alone (B = 1); the
+   engine's tok/s and ms a step printed beside phase 7's decode;
 7c. the serving path on rwkv6 (``protocol_serve_rwkv6``): ``python -m
    repro_torch.launch.protocol_inference --arch rwkv6-1.6b --full --seq
    32768 --batch 1`` (1,590,235,136 params built), with phase 7's checks;
@@ -269,8 +292,8 @@ Phases, each timed with CUDA events:
    ``flex_attention`` with a sliding-window block mask, zamba2's causal
    triangle against ``scaled_dot_product_attention(is_causal=True)``).
 
-Each driven path (phases 4, 4b, 4c, 4d, 4e, 4f, 5, 7, 7c, 7e, 10, 10b, 10c, 10d,
-10e, 10f and 10g) has launch counters of its own:
+Each driven path (phases 4, 4b, 4c, 4d, 4e, 4f, 5, 7, 7c, 7e, 7g, 10, 10b, 10c,
+10d, 10e, 10f, 10g and 10h) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
@@ -307,10 +330,29 @@ SWA_SHAPE = dict(b=1, s=32_768, hq=32, hkv=8, hd=80, window=4096)
 DANUBE_LAYERS = 24
 SERVE_PREFILLS = 4              # served full swarm, one node offline, the true
                                 # params and the coalition's: 24 launches each
-# decode: the prompt overruns the 4,096-slot ring, which wraps 64 steps
-# before the prompt ends; phase 7b steps WRAP_STEPS positions around it
+# decode: the prompts overrun the 4,096-slot ring, which wraps 64 positions
+# before they end; phase 7b steps WRAP_STEPS positions around the wrap,
+# teacher-forced.  Phase 7's free-running decode steps only the first
+# SERVE_DECODE_LEN tokens of them (decode is host-bound: each step costs the
+# same whatever the position, so the cut saves ~3,770 of ~4,190 steps)
 DECODE_PROMPTS, DECODE_LEN, DECODE_NEW = 4, SWA_SHAPE["window"] + 64, 32
 WRAP_STEPS = 128
+SERVE_DECODE_LEN = 392
+# phase 7g: the continuous-batching engine on full-width danube through
+# ``launch/serve.py --driver engine`` (16 requests of 64 tokens, 8 slots, 16
+# new tokens), then a custody-gated run: protocol_serve's custody matrix,
+# prompts of 32-64 tokens and budgets of 4-16 (numpy seed 11), one arrival a
+# step, both holders of shard 0 down over steps [20, 40)
+ENGINE_ARGS = dict(batch=16, slots=8, prompt_len=64, max_new=16)
+ENGINE_CUSTODY = dict(n_nodes=8, num_shards=16, redundancy=2, max_fraction=0.35)
+ENGINE_STEPS, ENGINE_OUTAGE = 200, (20, 40)
+# layers 0 and 1 of each occupied slot's K/V at mid-horizon against the same
+# request stepped alone (B = 1): bf16 rounding of two GEMM orders
+ENGINE_KV_REL = 1e-2
+# phase 10h: the reduced families' engines, card against CPU (the lane of
+# tests/test_torch_serving_families.py)
+ENGINE_FAMILIES = {"h2o-danube-1.8b": dict(sliding_window=8), "rwkv6-1.6b": {},
+                   "zamba2-1.2b": {}}
 # the rwkv6 serving path: rwkv6-1.6b's prefill at the same length
 WKV_SHAPE = dict(b=1, s=32_768, h=32, k=64)
 RWKV_LAYERS = 24
@@ -446,6 +488,9 @@ EXPECTED_LAUNCHES = {
     # no_off_topology_smoke's entry is set by phase 10d from its graphs (one
     # CenteredClip round for each node with a kept neighbour: 368 a sweep)
     "protocol_serve": {"swa_attention": DANUBE_LAYERS * SERVE_PREFILLS},
+    # the serving engine prefills by stepping decode_step, which runs no kernel
+    "serving_engine": {},
+    "serving_smoke": {},
     "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
     "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS,
                               "swa_attention": ZAMBA_SHARED * SERVE_PREFILLS},
@@ -618,6 +663,8 @@ class Smoke:
         self.phase("10f custody_smoke on the tiny quadratic, card vs CPU", self.custody_smoke)
         self.phase("10g no_off_economy_smoke on the tiny quadratic, card vs CPU",
                    self.no_off_economy)
+        self.phase("10h serving_smoke and the reduced families' engines, card vs CPU",
+                   self.serving_smoke)
         torch.cuda.reset_peak_memory_stats()
         self.phase("10b no_off_smoke campaign on protocol-125m (full width)",
                    lambda: self.campaign_full_width(main_out["problem"]))
@@ -631,6 +678,10 @@ class Smoke:
         self.phase("8 kernel route vs _swa route (full width)",
                    lambda: self.swa_route_gap(serve_out))
         del serve_out
+        self.free()
+        torch.cuda.reset_peak_memory_stats()
+        self.phase("7g serving engine (launch/serve.py --driver engine, h2o-danube-1.8b "
+                   "full width)", self.serving_engine)
         self.free()
         torch.cuda.reset_peak_memory_stats()
         rwkv_out = self.phase("7c serving path (protocol_serve_rwkv6, rwkv6-1.6b full width)",
@@ -2306,7 +2357,8 @@ class Smoke:
             prompts = torch.randint(0, out["model"].cfg.vocab_size,
                                     (DECODE_PROMPTS, DECODE_LEN), generator=g,
                                     device=self.dev)
-            gen, stats = out["server"].decode("customer", prompts, DECODE_NEW)
+            gen, stats = out["server"].decode("customer", prompts[:, :SERVE_DECODE_LEN],
+                                              DECODE_NEW)
             return out, prompts, gen, stats
 
         out, prompts, gen, stats = self.counted("protocol_serve", drive)
@@ -2314,12 +2366,11 @@ class Smoke:
         cfg = out["model"].cfg
         check(cfg.use_pallas_kernels and cfg.sliding_window == SWA_SHAPE["window"]
               and cfg.param_count() == 1_831_201_280, "not full-width h2o-danube-1.8b")
-        check(cache_length(DECODE_LEN + DECODE_NEW, cfg.sliding_window) < DECODE_LEN,
-              "the decode's ring does not wrap")
         self.check_served(out, gen)
         self.profile_decode_step(out)
+        self.decode_rate = (stats.tok_per_s, 1e3 * stats.decode_s / DECODE_NEW)
         print(f"  protocol_serve: prefill of {SWA_SHAPE['b']} x {SWA_SHAPE['s']} tokens "
-              f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {DECODE_LEN} -> "
+              f"{out['prefill_s']:.3f} s; decode {DECODE_PROMPTS} x {SERVE_DECODE_LEN} -> "
               f"{DECODE_NEW} new: {stats.tok_per_s:.1f} tok/s (prefill by stepping "
               f"{stats.prefill_s:.3f} s, decode {stats.decode_s:.3f} s); coalition "
               f"logits relative L2 {out['extract_rel']:.3f}; max_memory_allocated "
@@ -2412,6 +2463,8 @@ class Smoke:
         b, s = prompts.shape
         lc = cache_length(s, cfg.sliding_window)
         start = s - WRAP_STEPS
+        check(cache_length(DECODE_LEN + DECODE_NEW, cfg.sliding_window) < DECODE_LEN,
+              "the prompts do not wrap the ring")
         check(start < lc < s, "the stepped positions do not cross the ring's wrap")
         positions = torch.arange(s, device=self.dev).expand(b, s)
         slots = torch.arange(start, device=self.dev) % lc
@@ -2510,6 +2563,236 @@ class Smoke:
         check(free_kernel <= max(1e-2, 2 * free_witness),
               f"free-running, the kernel route parts from _swa ({free_kernel:.3e}) more "
               f"than twice as far as two routes without the kernel ({free_witness:.3e})")
+
+    def serving_engine(self):
+        """Phase 7g: the continuous-batching engine at full width.  The
+        launcher's run on counters of its own (no kernel: prefill steps
+        ``decode_step``); then one custody-gated ``ServingEngine.run`` on
+        the same model and prompts, and the same lane stepped by hand with
+        ``make_serve_step`` under ``torch.cuda.set_sync_debug_mode("error")``
+        (any host sync inside a step raises), equal to the run field for
+        field; the records equal to the same lane's on the CPU with the
+        reduced model (no EOS, so the schedule is the lane's alone), the
+        coverage trace to numpy's; at mid-horizon, layers 0 and 1 of each
+        occupied slot's K/V against the request stepped alone (B = 1)."""
+        torch = self.torch
+        import numpy as np
+        from repro_torch.core import serving
+        from repro_torch.core.swarm import stack_trees
+        from repro_torch.core.unextractable import assign_matrix
+        from repro_torch.launch import serve as launch
+        from repro_torch.models import transformer as T
+
+        args = ENGINE_ARGS
+        out = self.counted("serving_engine", lambda: launch.main([
+            "--driver", "engine", "--arch", "h2o-danube-1.8b", "--full",
+            "--batch", str(args["batch"]), "--slots", str(args["slots"]),
+            "--prompt-len", str(args["prompt_len"]), "--max-new", str(args["max_new"])]))
+        model, params, prompts, first = out["model"], out["params"], out["prompts"], out["result"]
+        cfg, n, steps = model.cfg, args["batch"], ENGINE_STEPS
+        check(sum(t.numel() for t in params.values()) == 1_831_201_280
+              and cfg.sliding_window == SWA_SHAPE["window"], "not full-width h2o-danube-1.8b")
+        check(bool(first.done.all()) and first.tokens_served == n * args["max_new"],
+              f"the launcher's engine served {int(first.done.sum())} of {n} requests")
+
+        # the custody-gated lane
+        c = ENGINE_CUSTODY
+        custody = assign_matrix(c["n_nodes"], c["num_shards"], c["redundancy"], seed=0,
+                                max_fraction=c["max_fraction"])
+        rng = np.random.default_rng(11)
+        plens = rng.integers(args["prompt_len"] // 2, args["prompt_len"] + 1, n)
+        budgets = rng.integers(4, args["max_new"] + 1, n)
+        down_from = np.full(c["n_nodes"], np.iinfo(np.int32).max, np.int64)
+        down_until = down_from.copy()
+        holders0 = np.flatnonzero(custody[:, 0])
+        down_from[holders0], down_until[holders0] = ENGINE_OUTAGE
+        scfg = serving.ServingConfig(slots=args["slots"], max_new=args["max_new"], steps=steps)
+
+        def lane_on(dev):
+            return serving.build_lane(
+                n_requests=n, prompt_lens=plens, max_new=budgets, steps=steps,
+                n_nodes=c["n_nodes"], balances=[100.0] * 4, fee=1.0, load=1.0,
+                custody=custody, device=dev)._replace(
+                node_down_from=torch.from_numpy(down_from).to(dev),
+                node_down_until=torch.from_numpy(down_until).to(dev))
+
+        lane = lane_on(self.dev)
+        engine = serving.ServingEngine(model, scfg, prompts)
+        res = self.counted("serving_engine", lambda: engine.run(params, lane))
+
+        # the same lane stepped by hand, no host sync allowed inside a step
+        step, init_state = serving.make_serve_step(model, scfg, tuple(prompts.shape),
+                                                   has_custody=True)
+        mid = steps // 2
+        with torch.inference_mode():
+            ts = torch.arange(steps, device=self.dev)
+            state, recs = init_state(lane), []
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for i in range(steps):
+                    state, rec = step(params, prompts, lane, state, ts[i])
+                    recs.append(rec)
+                    if i == mid - 1:
+                        snap = dict(k=state.caches["k"][:2].clone(),
+                                    v=state.caches["v"][:2].clone(),
+                                    slot_req=state.slot_req.clone(),
+                                    slot_t=state.slot_t.clone(),
+                                    out=state.out_tokens.clone())
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            by_hand = serving._result_from_device(state, stack_trees(recs))
+        fields = ("tokens", "done", "admitted", "balances", "coverage", "live", "n_active",
+                  "n_admitted", "new_tokens", "queued")
+        for f in fields:
+            check(np.array_equal(getattr(by_hand, f), getattr(res, f)),
+                  f"7g: the hand-stepped lane's {f} differs from ServingEngine.run's")
+
+        # the schedule is the lane's alone: the reduced model on the CPU
+        small = launch.serving_config("h2o-danube-1.8b", False)
+        from repro_torch.models.model import build_model
+        small_model = build_model(small)
+        cpu = serving.ServingEngine(small_model, scfg, prompts.cpu() % small.vocab_size,
+                                    device="cpu").run(small_model.init(0, "cpu"),
+                                                      lane_on(torch.device("cpu")))
+        for f in fields[4:] + ("done", "admitted", "balances"):
+            check(np.array_equal(getattr(cpu, f), getattr(res, f)),
+                  f"7g: {f} differs from the same lane's on the CPU")
+
+        # availability: numpy's coverage; dead steps exactly the outage's
+        online = ~((down_from[None, :] <= np.arange(steps)[:, None])
+                   & (np.arange(steps)[:, None] < down_until[None, :]))
+        want_cov = np.array([np.mean(np.any(custody & o[:, None], axis=0).astype(np.float32))
+                             for o in online], np.float32)
+        lo, hi = ENGINE_OUTAGE
+        dead = ~res.live
+        check(np.array_equal(res.coverage, want_cov), "7g: coverage differs from numpy's")
+        check(dead[lo:hi].all() and not dead[:lo].any() and not dead[hi:].any(),
+              f"7g: dead steps {np.flatnonzero(dead).tolist()}, expected [{lo}, {hi})")
+        check(not res.n_admitted[dead].any() and not res.new_tokens[dead].any(),
+              "7g: a dead step admitted a request or delivered a token")
+        check(res.new_tokens[hi:].sum() > 0 and bool(res.done.all()),
+              f"7g: serving did not resume and finish ({int(res.done.sum())} of {n} done)")
+
+        # mid-horizon K/V of layers 0 and 1 against each request stepped alone
+        worst, rows = 0.0, 0
+        layers = T._per_layer(params, cfg)[:2]
+        held, given = prompts.cpu(), snap["out"].cpu()
+        with torch.inference_mode():
+            for slot in range(args["slots"]):
+                r, fed = int(snap["slot_req"][slot]), int(snap["slot_t"][slot])
+                if r >= n or fed == 0:
+                    continue
+                toks = [int(held[r, t]) if t < plens[r] else int(given[r, t - plens[r]])
+                        for t in range(fed)]
+                kc = torch.zeros_like(snap["k"][:, :1])
+                vc = torch.zeros_like(kc)
+                for t, tok in enumerate(toks):
+                    x = torch.nn.functional.embedding(
+                        torch.tensor([[tok]], device=self.dev), params["embed"])
+                    for li, lp in enumerate(layers):
+                        x = T.layer_decode(lp, cfg, x, kc[li], vc[li], t)
+                for li in range(2):
+                    for name, alone in (("k", kc), ("v", vc)):
+                        want = alone[li, 0, :fed]
+                        check(bool(want.float().norm() > 0), f"7g: request {r}'s {name} is 0")
+                        worst = max(worst, self.rel(snap[name][li, slot, :fed], want))
+                rows += 1
+        check(rows > 0, "7g: no slot was occupied at mid-horizon")
+        per_step = 1e3 * res.wall_s / steps
+        rate, decode_ms = getattr(self, "decode_rate", (float("nan"), float("nan")))
+        print(f"  engine, custody-gated ({n} requests, prompts {plens.min()}-{plens.max()}, "
+              f"budgets {budgets.min()}-{budgets.max()}, {args['slots']} slots, {steps} "
+              f"steps): all done, dead steps exactly [{lo}, {hi}) (coverage "
+              f"{float(res.coverage[lo]):.4f}), no host sync in {steps} hand-stepped "
+              f"steps, records equal to the CPU's; layers 0-1 K/V of {rows} slots at step "
+              f"{mid} within {worst:.3e} relative L2 of B = 1 (bound {ENGINE_KV_REL})",
+              flush=True)
+        print(f"  engine rate: launcher {first.tok_per_s:.1f} tok/s, "
+              f"{1e3 * first.wall_s / out['engine'].cfg.steps:.2f} ms a step ({args['slots']} "
+              f"slots); custody-gated run {res.tok_per_s:.1f} tok/s, {per_step:.2f} ms a step; "
+              f"phase 7's greedy decode ({DECODE_PROMPTS} sequences) {rate:.1f} tok/s, "
+              f"{decode_ms:.2f} ms a step", flush=True)
+        check(worst <= ENGINE_KV_REL, f"7g: K/V of layers 0-1 {worst:.3e} from B = 1")
+
+    def serving_smoke(self):
+        """Phase 10h: ``serving.sweep`` of ``serving_smoke`` on the reduced
+        protocol-125m of ``launch/serving_no_off.py`` (float32), card
+        against CPU: tables equal as strings, cells equal; one of its lanes
+        through ``ServingEngine.run`` on both, tokens and records equal.
+        Then the reduced windowed danube, rwkv6 and zamba2 engines (float32)
+        on the lane of ``tests/test_torch_serving_families.py``, card
+        against CPU, tokens and records equal."""
+        torch = self.torch
+        import dataclasses
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.core import serving
+        from repro_torch.core.scenarios import get_serving_grid
+        from repro_torch.core.unextractable import assign_matrix
+        from repro_torch.launch.serving_no_off import MODEL
+        from repro_torch.models.model import build_model
+        cpu = torch.device("cpu")
+
+        def on(params, dev):
+            return {k: t.to(dev) for k, t in params.items()}
+
+        def both(model, params, cfg, prompts, lane_kwargs, replace=None):
+            out = []
+            for dev in (self.dev, cpu):
+                lane = serving.build_lane(**lane_kwargs, device=dev)._replace(
+                    **{k: torch.from_numpy(v).to(dev) for k, v in (replace or {}).items()})
+                out.append(serving.ServingEngine(model, cfg, prompts, device=dev).run(
+                    on(params, dev), lane))
+            for f in ("tokens", "done", "admitted", "balances", "coverage", "live",
+                      "n_active", "n_admitted", "new_tokens", "queued"):
+                check(np.array_equal(getattr(out[0], f), getattr(out[1], f)),
+                      f"10h {model.cfg.name}: {f} differs card vs CPU")
+            return out[0]
+
+        model = build_model(get_config("protocol-125m").reduced(**MODEL))
+        params = model.init(0, cpu)
+        grid = get_serving_grid("serving_smoke")
+        card = self.counted("serving_smoke",
+                            lambda: serving.sweep(model, on(params, self.dev), grid))
+        host = serving.sweep(model, params, grid, device="cpu")
+        check(card.availability_table() == host.availability_table(),
+              "10h: serving_smoke tables differ card vs CPU")
+        check([dataclasses.astuple(x) for x in card.cells]
+              == [dataclasses.astuple(x) for x in host.cells], "10h: cells differ")
+        print(card.availability_table(), flush=True)
+        prompts = torch.randint(0, model.cfg.vocab_size, (grid.n_requests, grid.prompt_len),
+                                generator=torch.Generator().manual_seed(0))
+        p = grid.prompt_len
+        both(model, params, serving.ServingConfig(slots=grid.slots, max_new=grid.max_new,
+                                                  steps=grid.steps), prompts,
+             dict(n_requests=grid.n_requests,
+                  prompt_lens=(p // 2 + np.arange(grid.n_requests) % (p - p // 2 + 1)),
+                  max_new=grid.max_new, steps=grid.steps, n_nodes=grid.n_nodes,
+                  balances=[grid.fee * grid.n_requests + 1.0] * grid.n_holders,
+                  fee=grid.fee, load=1.5, churn_rate=0.6, seed=0,
+                  custody=assign_matrix(grid.n_nodes, grid.num_shards, 2, seed=0,
+                                        max_fraction=grid.max_fraction)))
+        served = {}
+        cfg = serving.ServingConfig(slots=3, max_new=5, steps=40)
+        down_from = np.full(4, np.iinfo(np.int32).max, np.int64)
+        down_until = down_from.copy()
+        down_from[0], down_until[0] = 10, 16
+        for arch, kw in ENGINE_FAMILIES.items():
+            fam = build_model(get_config(arch).reduced(**kw))
+            prompts = np.random.default_rng(7).integers(0, fam.cfg.vocab_size, (6, 6))
+            res = both(fam, fam.init(0, cpu), cfg, prompts, dict(
+                n_requests=6, prompt_lens=[6, 3, 5, 6, 4, 6], max_new=[5, 5, 2, 4, 5, 3],
+                steps=cfg.steps, n_nodes=4, balances=[100.0, 100.0], fee=1.0,
+                arrivals=[0, 0, 1, 3, 3, 9],
+                custody=assign_matrix(4, 8, redundancy=1, seed=0, max_fraction=0.5)),
+                replace=dict(node_down_from=down_from, node_down_until=down_until))
+            check(bool(res.done.all()) and not res.live[10:16].any(),
+                  f"10h {arch}: not every request done, or live during the outage")
+            served[arch] = res.tokens_served
+        print(f"  serving_smoke card == CPU (8 lanes, table and cells; one lane's tokens "
+              f"and records); reduced engines card == CPU, tokens and records: {served}",
+              flush=True)
 
     def protocol_serve_rwkv6(self):
         """The serving path on full-width rwkv6-1.6b, on counters of its

@@ -11,8 +11,8 @@ two custody scenarios, the three async ones and the two economy ones.
 
 :class:`SweepGrid` names the §5.5 derailment phase-diagram grids that
 ``core.derailment.sweep`` consumes: every grid of the reference, the
-economy grids included.  The reference's serving grids wait for ROADMAP
-queue 1, item 12.
+economy grids included.  :class:`ServingGrid` names the serving grids
+that ``core.serving.sweep`` consumes: every serving grid of the reference.
 """
 from __future__ import annotations
 
@@ -716,6 +716,120 @@ register_sweep_grid(SweepGrid(
     fees=(0.5, 2.0),
     reward_schedules=((0.1, 5.0),),
     adaptive=(False, True),
+))
+
+
+# -- serving grids (no-off at inference) -----------------------------------------
+@dataclass(frozen=True)
+class ServingGrid:
+    """A named serving sweep: the cartesian (load × churn rate × custody
+    redundancy × coalition fraction × seed) grid that ``core.serving.sweep``
+    runs, every lane through one step function — the inference twin of
+    :class:`SweepGrid`.
+
+    ``loads`` are request arrivals per serve step; ``churn_rates`` make
+    that fraction of non-coalition custody nodes transient (half leave on
+    staggered mid-horizon steps, half join late — elastic relief, the
+    source of coverage gaps that *heal* and hence of the "degraded"
+    regime); ``coalition_fractions`` mark roster-tail coalitions that
+    defect together at ``defect_step`` (the inference no-off attack: who
+    can refuse serving by leaving); ``redundancies`` draw one custody
+    matrix each (seed 0 — serving seeds vary churn, never who holds
+    what).  Engine shape: ``slots`` decode slots serve ``n_requests``
+    requests of ``prompt_len`` (max) prompt tokens and ``max_new``
+    generated tokens over a ``steps`` horizon; admission costs ``fee``
+    credentials from one of ``n_holders`` balances."""
+    name: str
+    description: str
+    loads: Tuple[float, ...] = (0.25, 0.5, 1.0)
+    churn_rates: Tuple[float, ...] = (0.0, 0.3, 0.6)
+    redundancies: Tuple[int, ...] = (1, 2)
+    coalition_fractions: Tuple[float, ...] = (0.0,)
+    seeds: Tuple[int, ...] = (0, 1)
+    n_nodes: int = 8
+    num_shards: int = 12
+    max_fraction: float = 0.5
+    n_requests: int = 12
+    n_holders: int = 4
+    slots: int = 4
+    prompt_len: int = 8
+    max_new: int = 8
+    steps: int = 96
+    defect_step: int = 32
+    fee: float = 1.0
+
+    @property
+    def n_points(self) -> int:
+        return (len(self.loads) * len(self.churn_rates)
+                * len(self.redundancies) * len(self.coalition_fractions)
+                * len(self.seeds))
+
+    @property
+    def n_lanes(self) -> int:
+        """Serving sweeps have no baseline lanes: lanes == points (named as
+        :class:`SweepGrid`'s)."""
+        return self.n_points
+
+
+SERVING_GRIDS: Dict[str, ServingGrid] = {}
+
+
+def register_serving_grid(grid: ServingGrid) -> ServingGrid:
+    SERVING_GRIDS[grid.name] = grid
+    return grid
+
+
+def get_serving_grid(name: str) -> ServingGrid:
+    try:
+        return SERVING_GRIDS[name]
+    except KeyError:
+        raise KeyError(f"unknown serving grid {name!r}; "
+                       f"registered: {list_serving_grids()}") from None
+
+
+def list_serving_grids() -> List[str]:
+    return sorted(SERVING_GRIDS)
+
+
+register_serving_grid(ServingGrid(
+    name="serving_frontier",
+    description=("The inference no-off frontier: at what load, churn rate "
+                 "and custody redundancy does continuous-batching serving "
+                 "stay available?  (3 loads x 3 churn rates x 2 "
+                 "redundancies x 2 seeds) = 36 lanes in one compiled "
+                 "program, classified served / degraded / halted."),
+))
+
+register_serving_grid(ServingGrid(
+    name="serving_coalition",
+    description=("Who can refuse serving?  A roster-tail coalition defects "
+                 "at defect_step against increasing custody redundancy: "
+                 "the serving twin of the §5.5 off-switch question — at "
+                 "redundancy 1 every holder holds a veto; redundancy r "
+                 "needs a coalition covering some shard's every holder."),
+    loads=(0.5,),
+    churn_rates=(0.0,),
+    redundancies=(1, 2, 3),
+    coalition_fractions=(0.25, 0.5, 0.75, 1.0),
+    seeds=(0, 1, 2),
+))
+
+register_serving_grid(ServingGrid(
+    name="serving_smoke",
+    description=("CI smoke: 2 loads x 2 churn rates x 2 redundancies x 1 "
+                 "seed = 8 tiny serving lanes with the full load/churn/"
+                 "redundancy axis set."),
+    loads=(0.5, 1.5),
+    churn_rates=(0.0, 0.6),
+    redundancies=(1, 2),
+    seeds=(0,),
+    n_requests=8,
+    num_shards=8,
+    slots=3,
+    prompt_len=6,
+    max_new=6,
+    steps=48,
+    defect_step=16,
 ))
 
 

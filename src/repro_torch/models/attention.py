@@ -20,7 +20,9 @@ Layouts are the reference's: q (B, S, Hq, hd), k and v (B, S, Hkv, hd).
   also serves training.
 - Decode: one new token against a cache of ``cache_length`` slots, a ring
   (slot pos % L) when the model has a window.  The cache is updated in
-  place.
+  place.  ``pos`` is a host int for the whole batch, or a (B,) tensor on
+  the cache's device with each row at its own position (the serving
+  engine's slots).
 """
 from __future__ import annotations
 
@@ -127,28 +129,46 @@ def cache_length(seq_len: int, window: Optional[int]) -> int:
     return seq_len if window is None else min(seq_len, window)
 
 
+def row_positions(pos, batch: int, device: torch.device) -> torch.Tensor:
+    """A decode position as a (B,) int64 tensor: a per-row tensor as it is,
+    a host int repeated over the batch."""
+    if isinstance(pos, torch.Tensor):
+        return pos
+    return torch.full((batch,), pos, dtype=torch.long, device=device)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int, *, ring: bool) -> torch.Tensor:
+                     pos, *, ring: bool) -> torch.Tensor:
     """q (B, 1, Hq, hd) against a cache (B, L, Hkv, hd) that already holds
-    the new token; ``pos`` is the new token's absolute position."""
+    the new token; ``pos`` is the new token's absolute position, a host int
+    or a (B,) tensor of per-row positions.  Slot j of row b is valid when
+    ``j <= pos[b]``, and every slot of a full ring (``pos[b] + 1 >= L``)."""
     b, _, hq, hd = q.shape
     l, hkv = k_cache.shape[1], k_cache.shape[2]
     qg = _grouped(q, hkv)[:, 0].float()                         # (B, Hkv, G, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * hd ** -0.5
-    if not (ring and pos + 1 >= l):           # a full ring: every slot is valid
-        valid = torch.arange(l, device=q.device) <= pos
-        s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+    row_pos = row_positions(pos, b, q.device)[:, None, None, None]
+    valid = torch.arange(l, device=q.device) <= row_pos
+    if ring:
+        valid = valid | (row_pos + 1 >= l)
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(b, 1, hq, hd).to(q.dtype)
 
 
 def cache_insert(k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor,
-                 v_new: torch.Tensor, pos: int, *, ring: bool):
-    """Write one token's K/V at slot ``pos`` (ring: ``pos % L``), in place."""
-    slot = pos % k_cache.shape[1] if ring else pos
-    k_cache[:, slot:slot + 1] = k_new
-    v_cache[:, slot:slot + 1] = v_new
+                 v_new: torch.Tensor, pos, *, ring: bool):
+    """Write one token's K/V in place: row b at slot ``pos[b] % L`` (ring)
+    or ``min(pos[b], L - 1)`` (the reference's ``dynamic_update_slice``
+    clamps), by a scatter on the device; ``pos`` a host int or a (B,)
+    tensor."""
+    l = k_cache.shape[1]
+    pos = row_positions(pos, k_cache.shape[0], k_cache.device)
+    slot = pos % l if ring else torch.clamp(pos, max=l - 1)
+    idx = slot[:, None, None, None].expand(k_new.shape)
+    k_cache.scatter_(1, idx, k_new.to(k_cache.dtype))
+    v_cache.scatter_(1, idx, v_new.to(v_cache.dtype))
     return k_cache, v_cache
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba2
+from repro_torch.models.attention import row_positions
 from repro_torch.models.common import (chunked_softmax_xent, dense_init, dtype_of,
                                        embed_init, rms_norm)
 from repro_torch.models.transformer import _layer_apply, layer_decode, unembed_of
@@ -150,11 +151,17 @@ def loss_fn(params: Params, cfg: ModelConfig, batch):
 
 
 # -- serving -------------------------------------------------------------------
+#: the batch axis of each cache tensor: ``mamba_g`` is stacked (groups,
+#: layers a group, B, ...), the others (layers or applications, B, ...)
+CACHE_BATCH_AXES = {"mamba_g": 2, "mamba_rem": 1, "attn_k": 1, "attn_v": 1}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device: torch.device) -> Dict:
     """The reference's cache: per mamba layer a zero SSD state (float32) and
     conv buffer (model dtype), stacked as the params are (``mamba_g``,
     ``mamba_rem``); per application of the shared block a zero K/V cache
-    of ``seq_len`` slots (no ring); position 0."""
+    of ``seq_len`` slots (no ring); position 0 (a host int, or a (B,)
+    tensor of per-row positions in its place)."""
     dtype = dtype_of(cfg)
     g, rem = group_counts(cfg)
     m = mamba2.init_mamba_cache(cfg, batch, dtype, device)
@@ -177,6 +184,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: D
     """tokens (B, 1) -> logits (B, 1, V) float32 and the advanced cache (the
     same tensors, written in place, and ``pos + 1``)."""
     pos = cache["pos"]
+    rows = row_positions(pos, tokens.shape[0], tokens.device)
     x = F.embedding(tokens, params["embed"])
     groups, rem = mamba_layers(params, cfg)
     sp = shared_block(params)
@@ -185,7 +193,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: D
     for gi in range(len(groups) // m):
         for li in range(m):
             x = _mamba_decode(groups[gi * m + li], cfg, x, mg["h"][gi, li], mg["conv"][gi, li])
-        x = layer_decode(sp, cfg, x, cache["attn_k"][gi], cache["attn_v"][gi], pos)
+        x = layer_decode(sp, cfg, x, cache["attn_k"][gi], cache["attn_v"][gi], rows)
     for ri, lp in enumerate(rem):
         x = _mamba_decode(lp, cfg, x, cache["mamba_rem"]["h"][ri],
                           cache["mamba_rem"]["conv"][ri])

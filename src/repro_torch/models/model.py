@@ -74,7 +74,16 @@ class Model(nn.Module):
         return self.family.prefill(params, self.cfg, batch)
 
     def init_cache(self, batch: int, seq_len: int, device: DeviceLike = None):
+        """A zero decode cache of ``batch`` rows at position 0 (a host int;
+        ``decode_step`` also takes a (B,) tensor there, each row at its own
+        position)."""
         return self.family.init_cache(self.cfg, batch, seq_len, resolve_device(device))
+
+    @property
+    def cache_batch_axes(self) -> Dict[str, int]:
+        """The batch axis of each top-level cache entry but ``pos`` (for a
+        nested entry, of each of its tensors)."""
+        return self.family.CACHE_BATCH_AXES
 
     def decode_step(self, params: Params, tokens: torch.Tensor, cache):
         return self.family.decode_step(params, self.cfg, tokens, cache)

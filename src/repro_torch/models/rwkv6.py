@@ -267,10 +267,15 @@ def loss_fn(params: Params, cfg: ModelConfig, batch):
     return xent, {"xent": xent}
 
 
+#: the batch axis of each cache tensor (the layer axis comes first)
+CACHE_BATCH_AXES = {"s": 1, "x_tm": 1, "x_cm": 1}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device: torch.device) -> Dict:
     """Zero recurrent state (L, B, H, K, K) float32, zero shift vectors
-    (L, B, d) in the model's dtype, position 0.  ``seq_len`` is unused: the
-    state does not grow with the context."""
+    (L, B, d) in the model's dtype, position 0 (a host int, or a (B,)
+    tensor in its place: decode only advances it).  ``seq_len`` is unused:
+    the state does not grow with the context."""
     nheads, hd = rwkv_dims(cfg)
     L, d = cfg.num_layers, cfg.d_model
     return {"s": torch.zeros((L, batch, nheads, hd, hd), dtype=torch.float32, device=device),

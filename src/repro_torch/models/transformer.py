@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.models.attention import (attention, cache_insert, cache_length,
-                                          decode_attention)
+                                          decode_attention, row_positions)
 from repro_torch.models.common import (apply_rope, chunked_softmax_xent,
                                        dense_init, dtype_of, embed_init, rms_norm,
                                        swiglu)
@@ -105,13 +105,14 @@ def _layer_apply(lp: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def layer_decode(lp: Params, cfg: ModelConfig, x: torch.Tensor, kcache: torch.Tensor,
-                 vcache: torch.Tensor, pos: int) -> torch.Tensor:
+                 vcache: torch.Tensor, pos) -> torch.Tensor:
     """One-token layer step.  x (B, 1, d); kcache/vcache (B, L, Hkv, hd),
-    updated in place."""
+    updated in place; ``pos`` a host int or a (B,) tensor of per-row
+    positions."""
     ring = cfg.sliding_window is not None
     h = rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-    positions = torch.full((x.shape[0], 1), pos, device=x.device)
-    q, k, v = _qkv(lp, cfg, h, positions)
+    pos = row_positions(pos, x.shape[0], x.device)
+    q, k, v = _qkv(lp, cfg, h, pos[:, None])
     cache_insert(kcache, vcache, k, v, pos, ring=ring)
     o = decode_attention(q, kcache, vcache, pos, ring=ring)
     x = x + torch.einsum("bshe,hed->bsd", o, lp["wo"])
@@ -158,9 +159,14 @@ def loss_fn(params: Params, cfg: ModelConfig, batch):
 
 
 # -- serving -------------------------------------------------------------------
+#: the batch axis of each cache tensor (the layer axis comes first)
+CACHE_BATCH_AXES = {"k": 1, "v": 1}
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device: torch.device) -> Dict:
     """Zero K/V caches (L, B, cache_length, Hkv, hd) in the model's dtype and
-    position 0."""
+    position 0 (a host int; a (B,) tensor in its place puts each row at its
+    own position)."""
     _check_family(cfg)
     lc = cache_length(seq_len, cfg.sliding_window)
     shape = (cfg.num_layers, batch, lc, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -170,11 +176,13 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device: torch.device)
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor, cache: Dict):
     """tokens (B, 1) -> logits (B, 1, V) float32 and the advanced cache
-    (the same K/V tensors, written in place, and ``pos + 1``)."""
+    (the same K/V tensors, written in place, and ``pos + 1``, on the
+    device when ``pos`` is a per-row tensor)."""
     pos = cache["pos"]
+    rows = row_positions(pos, tokens.shape[0], tokens.device)
     x = F.embedding(tokens, params["embed"])
     for i, lp in enumerate(_per_layer(params, cfg)):
-        x = layer_decode(lp, cfg, x, cache["k"][i], cache["v"][i], pos)
+        x = layer_decode(lp, cfg, x, cache["k"][i], cache["v"][i], rows)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x.float(), unembed_of(params).float())
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -6,18 +6,25 @@ LM's three-regime table), ``launch/topology_no_off.py --tiny`` (the
 decentralized table on the quadratic, with its spectral gaps) and
 ``launch/custody_frontier.py --tiny`` (its extractability table equal to
 the reference example's grid swept by the reference: the letters read
-coverage alone).  Their refusal of the CPU unless asked is in
+coverage alone), ``launch/serve.py --driver engine`` and
+``launch/serving_no_off.py --smoke`` (its table equal to the reference
+example's).  Their refusal of the CPU unless asked is in
 ``test_torch_package.py``."""
 import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget_config
 from repro.core import derailment as jder
 from repro.core import scenarios as jscen
+from repro.core import serving as jserving
+from repro.models.model import build_model as jbuild_model
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.launch import custody_frontier as launch_custody
 from repro_torch.launch import derailment_no_off as launch_derailment
+from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import serving_no_off as launch_serving
 from repro_torch.launch import swarm as launch_swarm
 from repro_torch.launch import topology_no_off as launch_topology
 
@@ -96,3 +103,23 @@ def test_custody_frontier_launcher_table_equals_the_reference(capsys):
     assert res.n_runs == jres.n_runs == 16
     text = capsys.readouterr().out
     assert "redundancy 3: min extraction coalition" in text and "mean r=3" in text
+
+
+def test_serving_launchers_run_the_engine_on_the_cpu(capsys):
+    """``launch/serve.py --driver engine`` serves every request of its
+    queue; ``launch/serving_no_off.py --smoke`` renders the reference
+    example's table (with no EOS the schedule, and so each cell, depends on
+    the lane alone, not on the weights)."""
+    out = launch_serve.main(["--device", "cpu", "--driver", "engine", "--batch", "6",
+                             "--slots", "3", "--prompt-len", "5", "--max-new", "4"])
+    res = out["result"]
+    assert res.done.all() and res.tokens_served == 6 * 4 and res.availability == 1.0
+    assert int(res.n_active.max()) == 3
+    assert "engine slots=3 requests=6 served=6" in capsys.readouterr().out
+    got = launch_serving.main(["--device", "cpu", "--smoke"])["serving_smoke"]
+    jcfg = jget_config("protocol-125m").reduced(**launch_serving.MODEL)
+    jmodel = jbuild_model(jcfg)
+    want = jserving.sweep(jmodel, jmodel.init(jax.random.PRNGKey(0)),
+                          jscen.get_serving_grid("serving_smoke"))
+    assert got.availability_table() == want.availability_table()
+    assert got.n_runs == 8 and "H a=0.50" in capsys.readouterr().out

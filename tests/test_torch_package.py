@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core import compression, unextractable
+from repro_torch.core import compression, scenarios, serving, unextractable
 from repro_torch.core import swarm as tswarm
 from repro_torch.core.swarm import make_round_fn
 from repro_torch.data import pipeline
@@ -35,6 +35,7 @@ from repro_torch.launch import derailment_no_off as launch_derailment
 from repro_torch.launch import problems
 from repro_torch.launch import protocol_inference as launch_protocol
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import serving_no_off as launch_serving
 from repro_torch.launch import swarm as launch_swarm
 from repro_torch.launch import topology_no_off as launch_topology
 from repro_torch.models import convert
@@ -87,7 +88,7 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.launch.problems", "repro_torch.core.topology",
             "repro_torch.core.gossip", "repro_torch.launch.derailment_no_off",
             "repro_torch.checkpoint.checkpoint", "repro_torch.launch.custody_frontier",
-            "repro_torch.launch.topology_no_off"} <= mods
+            "repro_torch.launch.topology_no_off", "repro_torch.launch.serving_no_off"} <= mods
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -129,7 +130,15 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                                             "byzantine_neighborhood"]),
                  lambda: launch_derailment.main(["--rounds", "1"]),
                  lambda: launch_topology.main(["--rounds", "1", "--tiny"]),
-                 lambda: launch_custody.main(["--rounds", "1", "--tiny"])):
+                 lambda: launch_custody.main(["--rounds", "1", "--tiny"]),
+                 lambda: launch_serve.main(["--driver", "engine"]),
+                 lambda: launch_serving.main(["--smoke"]),
+                 lambda: serving.ServingEngine(build_model(cfg), serving.ServingConfig(),
+                                               np.zeros((2, 4), np.int32)),
+                 lambda: serving.build_lane(n_requests=1, prompt_lens=[1], max_new=1,
+                                            steps=1, n_nodes=1, balances=[1.0], load=1.0),
+                 lambda: serving.sweep(build_model(cfg), {},
+                                       scenarios.get_serving_grid("serving_smoke"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -158,8 +167,9 @@ def test_serving_launchers_run_on_the_cpu_when_asked(capsys):
     assert out["extract_err"] > 1e-2 and out["protocol_model"]
     text = capsys.readouterr().out
     assert "use_pallas_kernels=True" in text and "missing shard ids" in text
-    with pytest.raises(NotImplementedError, match="queue 1, item 12"):
-        launch_serve.main(["--device", "cpu", "--driver", "engine"])
+    out = launch_serve.main(["--device", "cpu", "--driver", "engine", "--batch", "3",
+                             "--slots", "2", "--prompt-len", "4", "--max-new", "3"])
+    assert out["result"].done.all() and out["result"].tokens_served == 9
 
 
 def test_rwkv6_launchers_run_on_the_cpu_when_asked(capsys):

@@ -24,6 +24,7 @@ from repro.core.ledger import Ledger as JLedger
 from repro.models.model import build_model as jbuild_model
 from repro_torch.configs import get_config
 from repro_torch.core import protocol as tprotocol
+from repro_torch.core import scenarios as tscenarios
 from repro_torch.core import serving as tserving
 from repro_torch.core import unextractable as tunx
 from repro_torch.core.ledger import Ledger
@@ -260,7 +261,13 @@ def test_server_lru_evicts_the_oldest_set():
 
 
 def test_serving_engine_waits_for_its_item():
-    for call in (tserving.ServingEngine, tserving.make_serve_step, tserving.build_lane,
-                 tserving.sweep):
-        with pytest.raises(NotImplementedError, match="queue 1, item 12"):
+    """The engine is ported; a MeshPlan placement (``plan=``) of the engine
+    and of the serving sweep waits for ROADMAP queue 1, item 13."""
+    tmodel = build_model(get_config("protocol-125m").reduced())
+    grid = tscenarios.get_serving_grid("serving_smoke")
+    for call in (lambda: tserving.ServingEngine(tmodel, tserving.ServingConfig(),
+                                                np.zeros((2, 4), np.int32), plan=object(),
+                                                device="cpu"),
+                 lambda: tserving.sweep(tmodel, {}, grid, plan=object(), device="cpu")):
+        with pytest.raises(NotImplementedError, match="queue 1, item 13"):
             call()
