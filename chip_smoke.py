@@ -37,7 +37,10 @@ Phases, each timed with CUDA events:
 3. the sliding-window attention kernel against its plain version at the
    prefill's shape (B 1, S 32,768, H 32 / Hkv 8, hd 80, window 4,096, bf16),
    at zamba2's full causal shape (B 1, S 32,768, H 32 / 32, hd 64,
-   window = S, bf16) and at ragged ones (S not a multiple of the tile or
+   window = S, bf16), at mixtral's band (B 1, S 32,768, H 32 / 8, hd 128,
+   window 4,096), qwen3-moe's causal triangle at hd 128 (H 32 / 4, window
+   = S = 4,099) and granite's MQA (H 48 / 1, hd 128, window = S = 4,099),
+   each in bf16 and float32, and at ragged ones (S not a multiple of the tile or
    below one, a window below a tile or not a multiple of one or at least S,
    hd 64 / 80 / 128, B 2, float32 and bfloat16): within 2e-2 in bf16 and
    2e-4 in f32 elementwise, two launches bit-equal; in bf16 also within
@@ -193,9 +196,10 @@ Phases, each timed with CUDA events:
    1-layer protocol-125m of ``launch/serving_no_off.py``, card against CPU:
    the availability tables equal as strings, the cells equal, one lane's
    tokens and records equal through ``ServingEngine.run``; then the reduced
-   windowed danube (window 8, so each row's ring wraps), rwkv6 and zamba2
-   engines (float32) on one lane with a coverage outage, card against CPU,
-   tokens and records equal;
+   windowed danube (window 8, so each row's ring wraps), rwkv6, zamba2,
+   mixtral, qwen3-moe (k = 8 of 16 experts), qwen2-vl, stablelm,
+   tinyllama and granite engines (float32) on one lane with a coverage
+   outage, card against CPU, tokens and records equal;
 7. the serving path (``protocol_serve``): ``python -m
    repro_torch.launch.protocol_inference --arch h2o-danube-1.8b --full
    --seq 32768 --batch 1`` (1,831,201,280 params; 8 nodes, 16 custody
@@ -276,6 +280,24 @@ Phases, each timed with CUDA events:
    teacher-forced, at each of the block's 6 applications both routes take
    the kernel route's input, and the update and the last logits agree
    within 4e-3 relative L2;
+7h. the serving path on mixtral (``protocol_serve_mixtral``): ``python -m
+   repro_torch.launch.protocol_inference --arch mixtral-8x7b --full
+   --layers 3 --seq 32768 --batch 1`` (full width, the depth cut to 3 of
+   32 layers: 4,615,958,528 params built, the cut config's
+   ``param_count()``), with phase 7's checks and 3 window-kernel launches
+   a prefill; the slots its MoE drops at capacity factor 1.25 printed;
+   then ``decode`` of 4 prompts of 392 tokens, 16 new tokens (tok/s and ms
+   a step printed); the phase's peak memory below 72 GiB;
+7i. on phase 7's 4 prompts of 4,160 tokens, mixtral's ring decode
+   against the kernel prefill at capacity factor E / k (no slot dropped,
+   as in decode), teacher-forced over the last 64 positions (each writes
+   over the ring's oldest slot), and the kernel route against the
+   ``_swa`` route, teacher-forced: each layer's update within 1e-2
+   relative L2 over the tokens that route alike on both sides, and the
+   last logits where the last token does; the tokens routed otherwise
+   (router near-ties that float order tips) at most 2% of them, each with
+   a router margin below 1e-2; then the slots the served prefill (1.25)
+   drops on those prompts and its logits' gap to the E / k prefill's;
 9. time each kernel, its plain version and the matching PyTorch library
    call where one exists, at the main paths' shapes (the two scans' rows
    also give the bytes a call holds beyond its outputs and the mean time
@@ -288,23 +310,25 @@ Phases, each timed with CUDA events:
    from 6b and 4b); the median also at K = 7 kept rows (its bytes (K + 1)
    D * 4); krum_d2's library column the faster of ``torch.cdist(x, x) **
    2`` and the same with ``compute_mode="use_mm_for_euclid_dist"``, both
-   timed; the attention kernel at both of its served shapes (danube's band against
-   ``flex_attention`` with a sliding-window block mask, zamba2's causal
-   triangle against ``scaled_dot_product_attention(is_causal=True)``).
+   timed; the attention kernel at its three served shapes (danube's and
+   mixtral's bands against ``flex_attention`` with a sliding-window block
+   mask, zamba2's causal triangle against
+   ``scaled_dot_product_attention(is_causal=True)``).
 
-Each driven path (phases 4, 4b, 4c, 4d, 4e, 4f, 5, 7, 7c, 7e, 7g, 10, 10b, 10c,
-10d, 10e, 10f, 10g and 10h) has launch counters of its own:
+Each driven path (phases 4, 4b, 4c, 4d, 4e, 4f, 5, 7, 7c, 7e, 7g, 7h, 10, 10b,
+10c, 10d, 10e, 10f, 10g and 10h) has launch counters of its own:
 zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (all
-nine kernels, the attention kernel twice: ``swa_attention`` at danube's
-shape and ``swa_attention@zamba2``), the
+nine kernels, the attention kernel three times: ``swa_attention`` at
+danube's shape, ``swa_attention@zamba2`` and ``swa_attention@mixtral``), the
 card's ``name, power.limit`` from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -352,7 +376,10 @@ ENGINE_KV_REL = 1e-2
 # phase 10h: the reduced families' engines, card against CPU (the lane of
 # tests/test_torch_serving_families.py)
 ENGINE_FAMILIES = {"h2o-danube-1.8b": dict(sliding_window=8), "rwkv6-1.6b": {},
-                   "zamba2-1.2b": {}}
+                   "zamba2-1.2b": {}, "mixtral-8x7b": {},
+                   "qwen3-moe-30b-a3b": dict(num_experts=16, experts_per_token=8),
+                   "qwen2-vl-2b": {}, "stablelm-3b": {}, "tinyllama-1.1b": {},
+                   "granite-20b": {}}
 # the rwkv6 serving path: rwkv6-1.6b's prefill at the same length
 WKV_SHAPE = dict(b=1, s=32_768, h=32, k=64)
 RWKV_LAYERS = 24
@@ -372,6 +399,23 @@ CAUSAL_SHAPE = dict(b=1, s=32_768, hq=32, hkv=32, hd=64, window=32_768)
 SWA_ROW_REL = 6e-4
 ZAMBA_PARAMS = 1_170_157_696    # the params built (param_count() says 1,170,155,264)
 ZAMBA_DECODE_LEN = 392          # as RWKV_DECODE_LEN
+# the mixtral serving path (phase 7h): mixtral-8x7b at full width with its
+# depth cut to 3 of 32 layers (the server holds ~12 bytes a parameter: 46.7B
+# do not fit one card, 3 layers' 4,615,958,528 do), at the same length
+MIXTRAL_LAYERS = 3
+MIXTRAL_PARAMS = 4_615_958_528  # param_count() of the cut config, and the params built
+MIXTRAL_SHAPE = dict(b=1, s=32_768, hq=32, hkv=8, hd=128, window=4096)
+MIXTRAL_DECODE_LEN, MIXTRAL_DECODE_NEW = 392, 16
+MIXTRAL_MEM_GIB = 72            # the phase's max_memory_allocated stays below this
+# phase 7i: decode teacher-forced against the kernel prefill at capacity
+# factor E / k over the last MIXTRAL_STEPS positions of phase 7's 4,160-token
+# prompts (the ring wraps 64 positions before they end).  A token whose
+# routing differs between the two sides (its k-th and (k+1)-th router
+# probabilities a near tie that float order tips) is counted, not held:
+# at most MOE_FLIP_FRAC of the stepped tokens, each with a router margin
+# below MOE_FLIP_MARGIN; the others are held to 7b's 1e-2
+MIXTRAL_STEPS = 64
+MOE_FLIP_FRAC, MOE_FLIP_MARGIN = 0.02, 1e-2
 # the §5.5 sweep: no_off_smoke (mean and CenteredClip at 2 and 6 attackers
 # beside 6 honest nodes, one seed, and the honest baseline: 5 lanes of N =
 # 12), its 2 CenteredClip lanes; 8 rounds on the tiny quadratic, cut to 2
@@ -436,6 +480,9 @@ KERNELS = {
     "swa_attention@zamba2": ("src/repro_torch/csrc/swa_attention.cu",
                              "src/repro/kernels/swa_attention/kernel.py:65",
                              "protocol_serve_zamba2", "swa_attention"),
+    "swa_attention@mixtral": ("src/repro_torch/csrc/swa_attention.cu",
+                              "src/repro/kernels/swa_attention/kernel.py:65",
+                              "protocol_serve_mixtral", "swa_attention"),
     "wkv_scan": ("src/repro_torch/csrc/rwkv6_wkv.cu",
                  "src/repro/kernels/rwkv6_wkv/kernel.py:73", "protocol_serve_rwkv6"),
     "ssd_scan": ("src/repro_torch/csrc/mamba2_ssd.cu",
@@ -494,6 +541,8 @@ EXPECTED_LAUNCHES = {
     "protocol_serve_rwkv6": {"wkv_scan": RWKV_LAYERS * SERVE_PREFILLS},
     "protocol_serve_zamba2": {"ssd_scan": ZAMBA_LAYERS * SERVE_PREFILLS,
                               "swa_attention": ZAMBA_SHARED * SERVE_PREFILLS},
+    # mixtral's MoE is torch ops; its window runs the attention kernel
+    "protocol_serve_mixtral": {"swa_attention": MIXTRAL_LAYERS * SERVE_PREFILLS},
 }
 
 
@@ -703,6 +752,14 @@ class Smoke:
                    lambda: self.causal_route_gap(zamba_out))
         del zamba_out
         self.free()
+        torch.cuda.reset_peak_memory_stats()
+        mixtral_out = self.phase("7h serving path (protocol_serve_mixtral, mixtral-8x7b full "
+                                 "width, 3 layers)", self.protocol_serve_mixtral)
+        self.phase("7i decode vs kernel prefill at capacity factor E / k, kernel route vs "
+                   "_swa route (mixtral full width)",
+                   lambda: self.mixtral_decode_vs_prefill(mixtral_out))
+        del mixtral_out
+        self.free()
         rows = self.phase("9 timings", self.timings)
         print(json.dumps({"kernels": rows}), flush=True)
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -887,7 +944,13 @@ class Smoke:
         torch = self.torch
         from repro_torch.kernels.swa_attention import ops as swa
         main, causal = tuple(SWA_SHAPE.values()), tuple(CAUSAL_SHAPE.values())
+        mixtral = tuple(MIXTRAL_SHAPE.values())
         cases = [(main, torch.bfloat16), (causal, torch.bfloat16)] + [
+            (shape, dt) for shape in (
+                mixtral,                      # mixtral's band, hd 128 (the mma.sync path)
+                (1, 4099, 32, 4, 128, 4099),  # qwen3's causal triangle at hd 128
+                (1, 4099, 48, 1, 128, 4099))  # granite's MQA, window = S
+            for dt in (torch.bfloat16, torch.float32)] + [
             (shape, dt) for shape in (
                 (2, 1000, 8, 2, 64, 17),      # S not a multiple of 64, window < a tile
                 (1, 4099, 16, 4, 80, 1000),   # window not a multiple of a tile
@@ -926,7 +989,8 @@ class Smoke:
                       f"of plain ({tag}: {control:.3e}), so the check cannot see it")
                 check(rel <= SWA_ROW_REL, f"swa_attention beyond {SWA_ROW_REL:.0e} mean row "
                       f"relative L2 of its plain version ({tag}): {rel:.3e}")
-            for name, shape in (("swa_attention", main), ("swa_attention@zamba2", causal)):
+            for name, shape in (("swa_attention", main), ("swa_attention@zamba2", causal),
+                                ("swa_attention@mixtral", mixtral)):
                 if (b, s, hq, hkv, hd, window) == shape and dt == torch.bfloat16:
                     self.record_err(name, o, r)
                     self.row_errors[name] = rel
@@ -2378,7 +2442,7 @@ class Smoke:
         del out["server"]
         return out
 
-    def check_served(self, out, gen):
+    def check_served(self, out, gen, new=DECODE_NEW):
         """Phase 7's checks on a served path: refused without credentials;
         served logits finite and bit-equal to ``Model.prefill(params)``
         with the full swarm and with node3 offline; a swarm of 2 nodes
@@ -2404,7 +2468,7 @@ class Smoke:
         served = out["server"]._params_cache[frozenset(launch.NODES)]
         check(all(torch.equal(served[k], t) for k, t in out["params"].items()),
               "the params the server decoded with differ from the true ones")
-        check(tuple(gen.shape) == (DECODE_PROMPTS, DECODE_NEW)
+        check(tuple(gen.shape) == (DECODE_PROMPTS, new)
               and bool(((gen >= 0) & (gen < cfg.vocab_size)).all()),
               "decode tokens misshapen or outside the vocabulary")
 
@@ -3238,6 +3302,193 @@ class Smoke:
               f"kernel and blockwise routes differ beyond 4e-3 (updates {max(gaps):.3e}, "
               f"logits {gap:.3e})")
 
+    # -- mixtral: the MoE family at full width ------------------------------------
+    @contextlib.contextmanager
+    def routes(self):
+        """Record every MoE routing made while open: per ``moe.route`` call,
+        the chosen experts sorted (B, S, k) and each token's router margin
+        p_k - p_(k+1) (B, S), the gap float order must cross to change its
+        choice."""
+        torch = self.torch
+        from repro_torch.models import moe
+        real, seen = moe.route, []
+
+        def recording(x, router, top_k):
+            out = real(x, router, top_k)
+            probs = torch.softmax(torch.einsum("...d,de->...e", x.float(), router.float()), -1)
+            top = torch.topk(probs, top_k + 1, dim=-1).values
+            seen.append((out[1].sort(dim=-1).values, top[..., top_k - 1] - top[..., top_k]))
+            return out
+
+        moe.route = recording
+        try:
+            yield seen
+        finally:
+            moe.route = real
+
+    def dropped(self, experts, cfg, seq):
+        """The slots a prefill of ``seq`` tokens at ``cfg.moe_capacity_factor``
+        drops, given its routing (B, S, k): per expert and row, the load past
+        the capacity."""
+        from repro_torch.models import moe
+        cap = moe.capacity(seq, cfg.experts_per_token, cfg.num_experts, cfg.moe_capacity_factor)
+        return int((moe.slot_ranks(experts, cfg.num_experts) >= cap).sum())
+
+    def protocol_serve_mixtral(self):
+        """Phase 7h: the serving path on full-width mixtral-8x7b with its
+        depth cut to 3 layers, on counters of its own: 3 window-kernel
+        launches a prefill; phase 7's checks; the params built equal to the
+        cut config's ``param_count()``; then ``decode`` of 4 prompts of 392
+        tokens, 16 new tokens.  Prints the prefill's time and the slots its
+        MoE dropped at capacity factor 1.25, the decode's tok/s and ms a
+        step, and the phase's peak memory, held below 72 GiB."""
+        torch = self.torch
+        from repro_torch.launch import protocol_inference as launch
+        b, s = MIXTRAL_SHAPE["b"], MIXTRAL_SHAPE["s"]
+
+        def drive():
+            with self.routes() as seen:
+                out = launch.main(["--arch", "mixtral-8x7b", "--full", "--layers",
+                                   str(MIXTRAL_LAYERS), "--seq", str(s), "--batch", str(b)])
+            g = torch.Generator(device=self.dev).manual_seed(5)
+            prompts = torch.randint(0, out["model"].cfg.vocab_size,
+                                    (DECODE_PROMPTS, MIXTRAL_DECODE_LEN), generator=g,
+                                    device=self.dev)
+            gen, stats = out["server"].decode("customer", prompts, MIXTRAL_DECODE_NEW)
+            return out, seen, gen, stats
+
+        out, seen, gen, stats = self.counted("protocol_serve_mixtral", drive)
+        cfg = out["model"].cfg
+        check(cfg.use_pallas_kernels and cfg.num_layers == MIXTRAL_LAYERS
+              and (cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.experts_per_token) ==
+              (4096, 14336, 8, 2) and cfg.sliding_window == MIXTRAL_SHAPE["window"]
+              and (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim) == (32, 8, 128),
+              "not full-width mixtral-8x7b at 3 layers")
+        check(out["n_params"] == cfg.param_count() == MIXTRAL_PARAMS,
+              f"params built {out['n_params']:,}, param_count() {cfg.param_count():,}, "
+              f"expected {MIXTRAL_PARAMS:,}")
+        self.check_served(out, gen, MIXTRAL_DECODE_NEW)
+        check(len(seen) == MIXTRAL_LAYERS * SERVE_PREFILLS, f"{len(seen)} MoE calls in the "
+              f"launcher, expected {MIXTRAL_LAYERS * SERVE_PREFILLS}")
+        drops = [self.dropped(e, cfg, s) for e, _ in seen[:MIXTRAL_LAYERS]]
+        steps = MIXTRAL_DECODE_LEN + MIXTRAL_DECODE_NEW
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  protocol_serve_mixtral: {out['n_params']:,} params ({MIXTRAL_LAYERS} of 32 "
+              f"layers); prefill of {b} x {s} tokens {out['prefill_s']:.3f} s, its MoE "
+              f"dropping {drops} of {s * cfg.experts_per_token} slots a layer (capacity "
+              f"factor {cfg.moe_capacity_factor}); decode {DECODE_PROMPTS} x "
+              f"{MIXTRAL_DECODE_LEN} -> {MIXTRAL_DECODE_NEW} new: {stats.tok_per_s:.1f} tok/s, "
+              f"{1e3 * (stats.prefill_s + stats.decode_s) / steps:.2f} ms a step (prefill by "
+              f"stepping {stats.prefill_s:.3f} s, decode {stats.decode_s:.3f} s); coalition "
+              f"logits relative L2 {out['extract_rel']:.3f}; max_memory_allocated "
+              f"{mem:.2f} GiB; {self.card_name()}", flush=True)
+        check(mem < MIXTRAL_MEM_GIB, f"peak memory {mem:.2f} GiB, not below {MIXTRAL_MEM_GIB}")
+        del out["server"]
+        return out
+
+    def flip_rel(self, got, want, base, flip):
+        """Relative L2 of the update ``got - base`` against ``want - base``
+        over the (B, T) tokens that ``flip`` leaves out."""
+        keep = ~flip
+        return self.rel((got.float() - base.float())[keep], (want.float() - base.float())[keep])
+
+    def hold_flips(self, what, flip, margin):
+        """A routing that differs between two float orders: at most
+        MOE_FLIP_FRAC of the tokens, each a near tie (router margin below
+        MOE_FLIP_MARGIN)."""
+        n = int(flip.sum())
+        worst = float(margin[flip].max()) if n else 0.0
+        check(n <= MOE_FLIP_FRAC * flip.numel() and worst < MOE_FLIP_MARGIN,
+              f"{what}: {n} of {flip.numel()} tokens route otherwise, the widest router "
+              f"margin among them {worst:.3e}")
+        return n, worst
+
+    def mixtral_decode_vs_prefill(self, out):
+        """Phase 7i, on phase 7's 4 prompts of 4,160 tokens: the ring decode
+        against the kernel prefill at capacity factor E / k (which drops no
+        slot, as decode does not), teacher-forced over the last 64 positions,
+        each writing over the 4,096-slot ring's oldest slot, as phase 7b
+        does; and, teacher-forced on the same prompts, the kernel route
+        against the ``_swa`` route, as phase 8 does.  MoE routing is
+        discontinuous: a token whose router margin is a near tie may choose
+        another expert under another float order, and its update then
+        differs in full.  Such tokens are counted and held to be few and
+        near ties; the rest are held to 1e-2 relative L2 layer by layer,
+        and the last position's logits too where it routes alike.  Last,
+        the served prefill (capacity factor 1.25) on the same prompts: the
+        slots it drops, and its last logits' gap to the E / k prefill's."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from dataclasses import replace
+        from repro_torch.models import transformer as T
+        from repro_torch.models.attention import cache_length
+        from repro_torch.models.common import rms_norm
+        from repro_torch.models.model import build_model
+        params, served = out["params"], out["model"].cfg
+        cfg = replace(served, moe_capacity_factor=T.decode_capacity_factor(served))
+        cfg_s = replace(cfg, use_pallas_kernels=False)
+        g = torch.Generator(device=self.dev).manual_seed(5)
+        prompts = torch.randint(0, cfg.vocab_size, (DECODE_PROMPTS, DECODE_LEN), generator=g,
+                                device=self.dev)
+        b, s = prompts.shape
+        lc, start = cache_length(s, cfg.sliding_window), s - MIXTRAL_STEPS
+        check(lc <= start, "the stepped positions do not write over the ring's oldest slots")
+        check(cfg.moe_capacity_factor == cfg.num_experts / cfg.experts_per_token,
+              "the prefill's capacity factor is not E / k")
+        positions = torch.arange(s, device=self.dev).expand(b, s)
+        first = start - lc                        # the ring holds positions first..start-1
+        slots = torch.arange(first, start, device=self.dev) % lc
+        dec, route, dec_flips, route_flips = [], [], [], []
+        with torch.inference_mode():
+            cache = build_model(cfg).init_cache(b, s, self.dev)
+            x = F.embedding(prompts, params["embed"])
+            for i, lp in enumerate(T._per_layer(params, cfg)):
+                with self.routes() as seen:
+                    y = T._layer_apply(lp, cfg, x, positions)        # kernel prefill, E / k
+                    z = T._layer_apply(lp, cfg_s, x, positions)      # the _swa route
+                (pe, pm), (ze, _) = seen
+                h = rms_norm(x[:, first:start], lp["ln_attn"], cfg.norm_eps)
+                _, k, v = T._qkv(lp, cfg, h, positions[:, first:start])
+                kc, vc = cache["k"][i], cache["v"][i]
+                kc[:, slots], vc[:, slots] = k, v
+                with self.routes() as seen:
+                    stepped = torch.cat([T.layer_decode(lp, cfg, x[:, t:t + 1], kc, vc, t)
+                                         for t in range(start, s)], dim=1)
+                de = torch.cat([e for e, _ in seen], dim=1)
+                flip = (de != pe[:, start:]).any(-1)
+                dec_flips.append(self.hold_flips(f"7i decode, layer {i}", flip, pm[:, start:]))
+                dec.append(self.flip_rel(stepped, y[:, start:], x[:, start:], flip))
+                rflip = (ze != pe).any(-1)
+                route_flips.append(self.hold_flips(f"7i _swa route, layer {i}", rflip, pm))
+                route.append(self.flip_rel(z, y, x, rflip))
+                x = y
+            last_alike = not bool(flip[:, -1].any())
+            ek_logits = self.last_logits(params, cfg, x)
+            gap = self.rel(self.last_logits(params, cfg, stepped), ek_logits)
+            route_gap = self.rel(self.last_logits(params, cfg, z), ek_logits)
+            with self.routes() as seen:
+                narrow = build_model(served).prefill(params, {"tokens": prompts})
+            drops = [self.dropped(e, served, s) for e, _ in seen]
+        print(f"  decode vs kernel prefill (capacity factor {cfg.moe_capacity_factor}), "
+              f"teacher-forced over positions {start}-{s - 1} (ring of {lc}): layer updates "
+              f"within {max(dec):.3e} relative L2 over the tokens that route alike (per layer "
+              f"{[float(f'{r:.2e}') for r in dec]}); tokens routed otherwise, and the widest "
+              f"router margin among them, per layer {dec_flips} of {b * MIXTRAL_STEPS}; last "
+              f"position's logits {gap:.3e} (it routes alike in the last layer: {last_alike})",
+              flush=True)
+        print(f"  kernel route vs _swa route, teacher-forced on {b} x {s}: layer updates within "
+              f"{max(route):.3e} relative L2 over the tokens that route alike (per layer "
+              f"{[float(f'{r:.2e}') for r in route]}); tokens routed otherwise per layer "
+              f"{route_flips} of {b * s}; last logits {route_gap:.3e}", flush=True)
+        print(f"  the served prefill (capacity factor {served.moe_capacity_factor}) on the same "
+              f"prompts drops {drops} of {b * s * served.experts_per_token} slots a layer; its "
+              f"last logits {self.rel(narrow, ek_logits):.3e} relative L2 from the E / k "
+              f"prefill's", flush=True)
+        check(max(dec) <= 1e-2 and (gap <= 1e-2 or not last_alike),
+              f"decode and prefill differ beyond 1e-2 (layers {max(dec):.3e}, logits {gap:.3e})")
+        check(max(route) <= 1e-2, f"kernel and _swa routes differ beyond 1e-2 "
+                                  f"(layers {max(route):.3e})")
+
     def card_name(self):
         """The card's name and power limit, as nvidia-smi reads them."""
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3485,11 +3736,11 @@ class Smoke:
             return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200] if str(e) else ''}"
 
     def swa_rows(self):
-        """swa_attention at both of its served shapes.  danube's band: the
-        library call is one ``flex_attention`` with a sliding-window block
-        mask (it computes only the band), or, where this torch cannot run
-        it, one scaled_dot_product_attention with the band as a boolean mask
-        (which scores all S^2 pairs).  zamba2's causal triangle:
+        """swa_attention at its three served shapes.  danube's and mixtral's
+        bands: the library call is one ``flex_attention`` with a
+        sliding-window block mask (it computes only the band), or, where
+        this torch cannot run it, one scaled_dot_product_attention with the
+        band as a boolean mask (which scores all S^2 pairs).  zamba2's causal triangle:
         ``scaled_dot_product_attention(is_causal=True)``, the same function
         with p rounded to bf16.  Operations: 4 hd flops a pair of this run's
         band (the kernel's hi/lo split of p does 6 hd)."""
@@ -3498,7 +3749,8 @@ class Smoke:
         from repro_torch.kernels.swa_attention import ops as swa
         rows = []
         for name, shape in (("swa_attention", SWA_SHAPE),
-                            ("swa_attention@zamba2", CAUSAL_SHAPE)):
+                            ("swa_attention@zamba2", CAUSAL_SHAPE),
+                            ("swa_attention@mixtral", MIXTRAL_SHAPE)):
             b, s, hq, hkv, hd, window = shape.values()
             q, k, v = self.swa_inputs(b, s, hq, hkv, hd, torch.bfloat16, seed=3)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))          # (B, H, S, hd)

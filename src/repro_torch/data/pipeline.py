@@ -8,9 +8,11 @@ states and branch choices come from the port's key schedule
 (``random.generator``), so tokens differ from JAX's.  They are drawn on the
 CPU and then moved, so a batch is the same on every device.
 
-The LM batch serves the dense, SSM (rwkv6) and hybrid (zamba2) families,
-as in the reference; the VLM and audio branches of ``model_batch`` wait
-for their model families (ROADMAP queue 1, item 11).
+The LM batch serves the dense, MoE, SSM (rwkv6) and hybrid (zamba2)
+families, as in the reference.  ``model_batch`` gives a VLM batch its
+media stubs (normals from the port's key schedule) and M-RoPE position
+streams; the audio branch waits for its model family (ROADMAP queue 1,
+item 11).
 """
 from __future__ import annotations
 
@@ -20,8 +22,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import AUDIO, VLM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import vlm_inputs
 from repro_torch.random import _DATA, generator
 
 
@@ -71,12 +74,22 @@ def lm_batch(cfg: DataConfig, step: int, *, shard: int = 0,
 
 def model_batch(mcfg: ModelConfig, cfg: DataConfig, step: int, *, shard: int = 0,
                 num_shards: int = 1, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    if mcfg.family not in (DENSE, SSM, HYBRID):
+    """Family-aware batch.  A VLM's holds the first seq - M tokens, the
+    media stubs (B, M, d) drawn from ``(seed, _DATA, step, shard + 10,000)``
+    (the reference's key for them) and the position streams (pos, pos // 4,
+    pos % 4)."""
+    if mcfg.family == AUDIO:
         raise NotImplementedError(
             f"model_batch for the {mcfg.family!r} family waits for its model "
             "slice (ROADMAP queue 1, item 11)")
-    return lm_batch(cfg, step, shard=shard, num_shards=num_shards,
-                    device=device)
+    base = lm_batch(cfg, step, shard=shard, num_shards=num_shards, device=device)
+    if mcfg.family == VLM:
+        b, s = base["tokens"].shape[0], cfg.seq_len
+        base["tokens"] = base["tokens"][:, :s - mcfg.num_media_tokens]
+        g = generator(cfg.seed, _DATA, step, shard + 10_000, device=torch.device("cpu"))
+        dev = base["tokens"].device
+        base.update({k: t.to(dev) for k, t in vlm_inputs(mcfg, b, s, g).items()})
+    return base
 
 
 def data_fn_for_swarm(mcfg: ModelConfig, cfg: DataConfig, num_nodes: int,

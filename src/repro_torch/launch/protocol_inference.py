@@ -10,6 +10,8 @@ inference where the weights never leave the protocol.  The port's twin of
         --seq 32768 --batch 1                                    # 1,590,235,136 params
     python -m repro_torch.launch.protocol_inference --arch zamba2-1.2b --full \\
         --seq 32768 --batch 1                                    # 1,170,157,696 params
+    python -m repro_torch.launch.protocol_inference --arch mixtral-8x7b --full \\
+        --layers 3 --seq 32768 --batch 1                         # 4,615,958,528 params
 
 Shows (1) credential gating and transferable credentials, (2) that serving
 needs the live swarm (it survives one departure at redundancy 2, and a
@@ -23,7 +25,12 @@ WKV kernel, and each prefill of zamba2 the SSD scan kernel once per mamba
 layer (38 at full width).  At the reduced width (``ModelConfig.reduced``)
 rwkv6 has 8 WKV heads of 32, and zamba2 4 groups of 1 mamba layer with 16
 SSD heads of 32 and state 16.  The parameter count, printed and used in the
-economics, is that of the params built.
+economics, is that of the params built.  ``--layers N`` cuts the depth
+of the arch to N layers, its width kept: mixtral-8x7b's 46.7B params do
+not fit one card's server (its float32 custody shards, the launcher's
+params and two reassembled sets: about 12 bytes a parameter), 3 of its
+32 layers do.  A VLM's request carries its media stubs and M-RoPE
+positions (``Model.concrete_batch``).
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from repro_torch.core.serving import device_clock
 from repro_torch.core.unextractable import (extraction_cost_flops, is_protocol_model,
                                             retrain_cost_flops)
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import count_params, serving_config
+from repro_torch.launch.serve import count_params, describe, serving_config
 from repro_torch.models.model import build_model
 
 #: the example's reduced width
@@ -51,6 +58,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="protocol-125m")
     ap.add_argument("--full", action="store_true", help="the arch at full width")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the arch's)")
     ap.add_argument("--seq", type=int, default=16, help="tokens per prompt")
     ap.add_argument("--batch", type=int, default=4, help="prompts per request")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
@@ -59,13 +68,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = serving_config(args.arch, args.full, **REDUCED)
+    cfg = serving_config(args.arch, args.full, args.layers, **REDUCED)
     model = build_model(cfg)
     params = model.init(args.seed, dev)
     n_params = count_params(params)
-    print(f"model: {cfg.name} N={n_params:,} "
-          f"({'full' if args.full else 'reduced'}) on {dev}, "
-          f"use_pallas_kernels={cfg.use_pallas_kernels}")
+    print(describe(cfg, args.full, args.layers, n_params, dev))
 
     ledger = Ledger()
     for i, n in enumerate(NODES):
@@ -74,7 +81,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                      redundancy=2, max_fraction=0.35)
     print(f"model sharded into {srv.custody.num_shards} custody shards over "
           f"{len(NODES)} nodes (redundancy {srv.custody.redundancy}, max fraction 0.35)")
-    batch = {"tokens": model.concrete_batch(args.seed + 1, args.batch, args.seq, dev)["tokens"]}
+    batch = model.concrete_batch(args.seed + 1, args.batch, args.seq, dev)
+    del batch["labels"]
 
     # 1. credential gating and transfer
     refused = None

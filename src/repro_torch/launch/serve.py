@@ -6,6 +6,7 @@
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
     python -m repro_torch.launch.serve --arch zamba2-1.2b --full   # 1,170,157,696 params
     python -m repro_torch.launch.serve --device cpu --driver loop
+    python -m repro_torch.launch.serve --arch mixtral-8x7b --full --layers 3
     python -m repro_torch.launch.serve --driver engine --arch h2o-danube-1.8b --full \
         --batch 16 --slots 8 --prompt-len 64 --max-new 16
 
@@ -37,12 +38,33 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import build_model
 
 
-def serving_config(arch: str, full: bool, **reduced) -> ModelConfig:
+def serving_config(arch: str, full: bool, layers: Optional[int] = None,
+                   **reduced) -> ModelConfig:
     """``arch`` at full width, or ``.reduced(**reduced)``, with the kernel
-    flag set."""
-    cfg = get_config(arch)
-    cfg = cfg if full else cfg.reduced(**reduced)
+    flag set and, where ``layers`` is given, its depth cut to that many
+    layers (a run-size option: the width stays).  A reduced head dim keeps
+    the proportions of the arch's M-RoPE split."""
+    full_cfg = get_config(arch)
+    cfg = full_cfg if full else full_cfg.reduced(**reduced)
+    sec = full_cfg.mrope_sections
+    if sec is not None and sum(cfg.mrope_sections) != cfg.resolved_head_dim // 2:
+        scale = cfg.resolved_head_dim // 2 / sum(sec)
+        cfg = dataclasses.replace(cfg, mrope_sections=tuple(int(s * scale) for s in sec))
+    if layers is not None:
+        if not 0 < layers <= full_cfg.num_layers:
+            raise ValueError(f"--layers {layers}: {arch} has {full_cfg.num_layers} layers")
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     return dataclasses.replace(cfg, use_pallas_kernels=True)
+
+
+def describe(cfg: ModelConfig, full: bool, layers: Optional[int], n_params: int,
+             device) -> str:
+    """The launchers' ``model:`` line: arch, params built, width, and the
+    depth where ``--layers`` cut it."""
+    cut = (f", depth cut to {layers} of {get_config(cfg.name).num_layers} layers"
+           if layers is not None else "")
+    return (f"model: {cfg.name} N={n_params:,} ({'full' if full else 'reduced'}{cut}) "
+            f"on {device}, use_pallas_kernels={cfg.use_pallas_kernels}")
 
 
 def count_params(params) -> int:
@@ -62,18 +84,18 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--max-new", type=int, default=32)
     ap.add_argument("--slots", type=int, default=4, help="engine: decode slot-pool size")
     ap.add_argument("--full", action="store_true", help="the arch at full width")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the arch's)")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cuda (raises when CUDA is missing)")
     ap.add_argument("--seed", type=int, default=0, help="weight-init seed")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = serving_config(args.arch, args.full)
+    cfg = serving_config(args.arch, args.full, args.layers)
     model = build_model(cfg)
     params = model.init(args.seed, dev)
-    print(f"model: {cfg.name} N={count_params(params):,} "
-          f"({'full' if args.full else 'reduced'}) on {dev}, "
-          f"use_pallas_kernels={cfg.use_pallas_kernels}")
+    print(describe(cfg, args.full, args.layers, count_params(params), dev))
     g = torch.Generator().manual_seed(args.seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=g).to(dev)

@@ -76,6 +76,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+@lru_cache(maxsize=16)
+def _section_ids_on(sections: tuple, device: torch.device) -> torch.Tensor:
+    """The M-RoPE stream (0, 1, 2) of each of the hd/2 frequencies, on
+    ``device``, copied there once (as :func:`_rope_freqs_on`)."""
+    ids = np.concatenate([np.full(s, i) for i, s in enumerate(sections)])
+    return torch.as_tensor(ids, dtype=torch.long, device=device)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Sequence[int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x (B, S, H, hd); positions (3, B, S), the
+    (temporal, height, width) ids.  ``sections`` splits the hd/2 rotary
+    frequencies into (t, h, w) groups, each rotated by its own position
+    stream.  [arXiv:2409.12191]"""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to hd/2 = {hd // 2}")
+    freqs = _rope_freqs_on(hd, float(theta), x.device)           # (hd/2,)
+    pos_sel = positions[_section_ids_on(tuple(sections), x.device)]  # (hd/2, B, S)
+    angles = torch.movedim(pos_sel, 0, -1).float() * freqs       # (B, S, hd/2)
+    angles = angles[..., None, :]                                # (B, S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # -- FFN ---------------------------------------------------------------------
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """``build_model(cfg)``: a model of a ported family as an ``nn.Module``
 (twin of ``repro/models/model.py``).  The family picks the module, as the
-reference's ``_family_module`` does: dense models run in
-``models/transformer.py``, rwkv6 (the SSM family) in ``models/rwkv6.py``,
-zamba2 (the hybrid family) in ``models/hybrid.py``; the other families
-raise ``NotImplementedError`` naming their ROADMAP item.
+reference's ``_family_module`` does: the dense, MoE and VLM families run
+in ``models/transformer.py``, rwkv6 (the SSM family) in
+``models/rwkv6.py``, zamba2 (the hybrid family) in ``models/hybrid.py``;
+the audio family raises ``NotImplementedError`` naming its ROADMAP item.
 
 The swarm works on param dicts functionally, as the reference does, so the
 module's own surface is thin: ``init`` draws a fresh param dict,
@@ -21,9 +21,10 @@ from typing import Dict
 import torch
 from torch import nn
 
-from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import hybrid, rwkv6, transformer
+from repro_torch.models.common import dtype_of
 from repro_torch.models.convert import flat_order
 
 Params = Dict[str, torch.Tensor]
@@ -31,7 +32,7 @@ Params = Dict[str, torch.Tensor]
 
 def family_module(cfg: ModelConfig):
     """The module that runs ``cfg``'s family."""
-    if cfg.family == DENSE:
+    if cfg.family in (DENSE, MOE, VLM):
         return transformer
     if cfg.family == SSM:
         return rwkv6
@@ -100,14 +101,30 @@ class Model(nn.Module):
 
     def concrete_batch(self, seed: int, batch: int, seq: int,
                        device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-        """A small concrete batch of random tokens and labels (the dense,
-        SSM and hybrid families: the reference adds media and frames for the
-        others)."""
+        """A small concrete batch of random tokens and labels; a VLM's also
+        holds ``media`` (B, M, d) normals in the model's dtype before its
+        seq - M tokens, and the M-RoPE ``positions`` (3, B, seq), the
+        streams (pos, pos // 4, pos % 4), as the reference's."""
+        cfg = self.cfg
         g = torch.Generator().manual_seed(seed)
-        out = {"tokens": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g),
-               "labels": torch.randint(0, self.cfg.vocab_size, (batch, seq), generator=g)}
+        m = cfg.num_media_tokens if cfg.family == VLM else 0
+        out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq - m), generator=g),
+               "labels": torch.randint(0, cfg.vocab_size, (batch, seq), generator=g)}
+        if cfg.family == VLM:
+            out.update(vlm_inputs(cfg, batch, seq, g))
         dev = resolve_device(device)
         return {k: t.to(dev) for k, t in out.items()}
+
+
+def vlm_inputs(cfg: ModelConfig, batch: int, seq: int,
+               gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """A VLM batch's stubbed media embeddings (B, M, d), standard normals in
+    the model's dtype drawn from ``gen`` on the CPU, and its M-RoPE position
+    streams (3, B, seq): (pos, pos // 4, pos % 4)."""
+    media = torch.randn((batch, cfg.num_media_tokens, cfg.d_model), generator=gen)
+    pos = torch.arange(seq).expand(batch, seq)
+    return {"media": media.to(dtype_of(cfg)),
+            "positions": torch.stack([pos, pos // 4, pos % 4])}
 
 
 def build_model(cfg: ModelConfig) -> Model:

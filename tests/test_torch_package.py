@@ -44,6 +44,17 @@ from repro_torch.optim.optimizer import SGD
 
 ROOT = Path(__file__).resolve().parents[1]
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Torch on one intra-op thread for the module: the suite runs several
+    test files at once, and a thread pool each oversubscribes the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 
@@ -88,7 +99,11 @@ def test_port_imports_without_jax_or_the_reference():
             "repro_torch.launch.problems", "repro_torch.core.topology",
             "repro_torch.core.gossip", "repro_torch.launch.derailment_no_off",
             "repro_torch.checkpoint.checkpoint", "repro_torch.launch.custody_frontier",
-            "repro_torch.launch.topology_no_off", "repro_torch.launch.serving_no_off"} <= mods
+            "repro_torch.launch.topology_no_off", "repro_torch.launch.serving_no_off",
+            "repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
+            "repro_torch.configs.qwen3_moe_30b_a3b", "repro_torch.configs.qwen2_vl_2b",
+            "repro_torch.configs.stablelm_3b", "repro_torch.configs.tinyllama_1_1b",
+            "repro_torch.configs.granite_20b"} <= mods
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
@@ -208,15 +223,20 @@ def test_zamba2_launchers_run_on_the_cpu_when_asked(capsys):
 
 
 def test_unported_families_name_their_item():
-    """The families still to port raise naming their ROADMAP item; the
-    hybrid family (zamba2) builds."""
-    for family in ("moe", "vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-            build_model(get_config("rwkv6-1.6b").reduced(family=family))
+    """The audio family, still to port, raises naming its ROADMAP item; the
+    hybrid (zamba2), MoE and VLM families build, and model_batch serves the
+    VLM."""
     with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        pipeline.model_batch(get_config("rwkv6-1.6b").reduced(family="vlm"),
+        build_model(get_config("rwkv6-1.6b").reduced(family="audio"))
+    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        pipeline.model_batch(get_config("rwkv6-1.6b").reduced(family="audio"),
                              pipeline.DataConfig(64, 8, 2), 0, device="cpu")
     assert build_model(get_config("zamba2-1.2b").reduced()).family.__name__.endswith("hybrid")
+    for arch in ("mixtral-8x7b", "qwen2-vl-2b"):
+        assert build_model(get_config(arch).reduced()).family.__name__.endswith("transformer")
+    vlm = pipeline.model_batch(get_config("qwen2-vl-2b").reduced(),
+                               pipeline.DataConfig(64, 16, 2), 0, device="cpu")
+    assert vlm["tokens"].shape == (2, 8) and vlm["positions"].shape == (3, 2, 16)
 
 
 def test_swa_kernel_has_no_backward():

@@ -47,6 +47,7 @@ from repro_torch.kernels.rwkv6_wkv import ops
 from repro_torch.models import convert
 from repro_torch.models import rwkv6 as trwkv6
 from repro_torch.models.model import build_model
+from test_torch_decentralized import one_thread  # noqa: F401
 
 ARCH = "rwkv6-1.6b"
 

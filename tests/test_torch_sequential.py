@@ -49,6 +49,7 @@ from repro_torch.models import convert
 from repro_torch.models.model import build_model
 from repro_torch.optim import optimizer as topt
 from repro_torch.random import RoundDraws
+from test_torch_decentralized import one_thread  # noqa: F401
 
 
 def _stack(n, d, seed=0):

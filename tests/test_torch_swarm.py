@@ -61,6 +61,7 @@ from repro_torch.models import convert
 from repro_torch.models.model import build_model
 from repro_torch.optim import optimizer as topt
 from repro_torch.random import RoundDraws
+from test_torch_decentralized import one_thread  # noqa: F401
 
 SMALL = dict(num_layers=2, d_model=64, num_heads=4, head_dim=16, d_ff=256,
              vocab_size=256)

@@ -57,6 +57,7 @@ from repro_torch.models import hybrid as thybrid
 from repro_torch.models import mamba2 as tmamba2
 from repro_torch.models.common import rms_norm
 from repro_torch.models.model import build_model
+from test_torch_decentralized import one_thread  # noqa: F401
 
 ARCH = "zamba2-1.2b"
 SMALL = dict(num_layers=3, mamba_per_group=2)    # one group of 2, one remainder layer
