@@ -9,7 +9,9 @@ missing, when run outside the repository, or when any phase fails.
 Phases, each timed with CUDA events:
 
 1. build the kernels from ``src/repro_torch/csrc`` (nvcc, one process per
-   source, all started together);
+   source, all started together); print ptxas's registers, stack frame and
+   spills of every entry function and its warnings; fail if the attention
+   kernel's hd-128 TMA + wgmma instantiation spills;
 2. each swarm kernel against its plain PyTorch version, on the card, at the
    swarm round's full-width shapes (N = 10 nodes, D = 162,417,408) and at
    ragged ones (N = 3, D not a multiple of a block; k = 1, an even k, all
@@ -42,7 +44,11 @@ Phases, each timed with CUDA events:
    = S = 4,099) and granite's MQA (H 48 / 1, hd 128, window = S = 4,099),
    each in bf16 and float32, and at ragged ones (S not a multiple of the tile or
    below one, a window below a tile or not a multiple of one or at least S,
-   hd 64 / 80 / 128, B 2, float32 and bfloat16): within 2e-2 in bf16 and
+   hd 64 / 80 / 128, B 2, float32 and bfloat16), each case's kernel printed
+   as the C dispatcher reports it (``swa_attention_path``) and held to the
+   route (bf16 at hd 64, 80 and 128 with S of at least one 128-key tile:
+   the TMA ring + wgmma; other bf16: mma.sync; float32: CUDA cores):
+   within 2e-2 in bf16 and
    2e-4 in f32 elementwise, two launches bit-equal; in bf16 also within
    6e-4 mean row relative L2 (L2 over the head dim, each query and head a
    row), a bound that the plain version with p rounded to bf16 (a control,
@@ -313,7 +319,11 @@ Phases, each timed with CUDA events:
    timed; the attention kernel at its three served shapes (danube's and
    mixtral's bands against ``flex_attention`` with a sliding-window block
    mask, zamba2's causal triangle against
-   ``scaled_dot_product_attention(is_causal=True)``).
+   ``scaled_dot_product_attention(is_causal=True)``) and at qwen3-moe's
+   causal triangle at hd 128 (B 1, S 32,768, H 32 / 4; against SDPA
+   ``is_causal`` with ``enable_gqa``; no driven path, so 0 launches; held
+   against its plain version there first), each with the kernel its
+   dispatcher takes.
 
 Each driven path (phases 4, 4b, 4c, 4d, 4e, 4f, 5, 7, 7c, 7e, 7g, 7h, 10, 10b,
 10c, 10d, 10e, 10f, 10g and 10h) has launch counters of its own:
@@ -321,8 +331,9 @@ zeroed just before it, read just after it, and held to the launches that
 path must make (``EXPECTED_LAUNCHES``).
 
 Output: one line per phase, then a ``{"kernels": [...]}`` JSON line (all
-nine kernels, the attention kernel three times: ``swa_attention`` at
-danube's shape, ``swa_attention@zamba2`` and ``swa_attention@mixtral``), the
+nine kernels, the attention kernel four times: ``swa_attention`` at
+danube's shape, ``swa_attention@zamba2``, ``swa_attention@mixtral`` and
+``swa_attention@qwen3``), the
 card's ``name, power.limit`` from nvidia-smi, and as the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -331,6 +342,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -405,6 +417,9 @@ ZAMBA_DECODE_LEN = 392          # as RWKV_DECODE_LEN
 MIXTRAL_LAYERS = 3
 MIXTRAL_PARAMS = 4_615_958_528  # param_count() of the cut config, and the params built
 MIXTRAL_SHAPE = dict(b=1, s=32_768, hq=32, hkv=8, hd=128, window=4096)
+# qwen3-moe-30b-a3b's attention at the same length: full causal through the
+# window kernel at window = S, hd 128 (phase 9 only: its prefill is not driven)
+QWEN3_SHAPE = dict(b=1, s=32_768, hq=32, hkv=4, hd=128, window=32_768)
 MIXTRAL_DECODE_LEN, MIXTRAL_DECODE_NEW = 392, 16
 MIXTRAL_MEM_GIB = 72            # the phase's max_memory_allocated stays below this
 # phase 7i: decode teacher-forced against the kernel prefill at capacity
@@ -483,6 +498,10 @@ KERNELS = {
     "swa_attention@mixtral": ("src/repro_torch/csrc/swa_attention.cu",
                               "src/repro/kernels/swa_attention/kernel.py:65",
                               "protocol_serve_mixtral", "swa_attention"),
+    # no driven path: its launches are 0
+    "swa_attention@qwen3": ("src/repro_torch/csrc/swa_attention.cu",
+                            "src/repro/kernels/swa_attention/kernel.py:65",
+                            None, "swa_attention"),
     "wkv_scan": ("src/repro_torch/csrc/rwkv6_wkv.cu",
                  "src/repro/kernels/rwkv6_wkv/kernel.py:73", "protocol_serve_rwkv6"),
     "ssd_scan": ("src/repro_torch/csrc/mamba2_ssd.cu",
@@ -772,15 +791,33 @@ class Smoke:
             "count": torch.cuda.device_count()}}), flush=True)
 
     def build_kernels(self):
+        """Build every kernel; print ptxas's registers and spills of each
+        entry function and its warnings.  Fails if the attention kernel's
+        hd-128 instantiation spills."""
         logs = self.build.build()
+        spills = {}                # entry function -> (spill stores, spill loads)
         for lib, log in logs.items():
-            fn = None
+            fn, frame = None, ""
             for line in log.splitlines():
                 if "Compiling entry function" in line:
-                    fn = line.split("'")[1]
+                    fn, frame = line.split("'")[1], ""
+                elif "bytes stack frame" in line and fn is not None:
+                    frame = line.strip()
+                    found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", frame)
+                    spills[fn] = tuple(map(int, found.groups())) if found else None
                 elif "Used" in line and fn is not None:
-                    print(f"  ptxas {lib}: {fn[-60:]} {line.split(':', 1)[1].strip()}")
+                    print(f"  ptxas {lib}: {fn[-60:]} {line.split(':', 1)[1].strip()}; {frame}")
                     fn = None
+                elif "warning" in line.lower():
+                    print(f"  ptxas {lib}: {line.strip()}")
+        if "swa_attention" in logs:
+            hd128 = {f: v for f, v in spills.items() if "swa_fwd_bf16_wgmmaILi128E" in f}
+            check(len(hd128) == 1, f"ptxas reported no hd-128 attention kernel ({list(spills)})")
+            check(list(hd128.values()) == [(0, 0)],
+                  f"the hd-128 attention kernel spills: {hd128}")
+            print(f"  swa_attention hd 128: spill stores and loads {list(hd128.values())[0]}")
+        else:
+            print("  swa_attention was built before this run: no ptxas report")
         for name in self.build.SOURCES:
             self.build.load(name)
 
@@ -947,9 +984,11 @@ class Smoke:
         mixtral = tuple(MIXTRAL_SHAPE.values())
         cases = [(main, torch.bfloat16), (causal, torch.bfloat16)] + [
             (shape, dt) for shape in (
-                mixtral,                      # mixtral's band, hd 128 (the mma.sync path)
+                mixtral,                      # mixtral's band, hd 128
                 (1, 4099, 32, 4, 128, 4099),  # qwen3's causal triangle at hd 128
-                (1, 4099, 48, 1, 128, 4099))  # granite's MQA, window = S
+                (1, 4099, 48, 1, 128, 4099),  # granite's MQA, window = S
+                (2, 1000, 8, 2, 128, 300),    # hd 128, a band both tile edges cut, B 2
+                (2, 100, 4, 2, 128, 4096))    # hd 128 below one 128-query tile
             for dt in (torch.bfloat16, torch.float32)] + [
             (shape, dt) for shape in (
                 (2, 1000, 8, 2, 64, 17),      # S not a multiple of 64, window < a tile
@@ -963,6 +1002,10 @@ class Smoke:
             for dt in (torch.float32, torch.bfloat16)]
         for (b, s, hq, hkv, hd, window), dt in cases:
             q, k, v = self.swa_inputs(b, s, hq, hkv, hd, dt)
+            path = swa.kernel_path(s, hd, dt)
+            wgmma = dt == torch.bfloat16 and hd in (64, 80, 128) and s >= 128
+            check(path == swa.PATHS[2 if wgmma else 0 if dt == torch.float32 else 1],
+                  f"swa_attention: B={b} S={s} hd={hd} {dt} took the path {path}")
             out = swa.swa_attention_kernel(q, k, v, window=window)
             again = swa.swa_attention_kernel(q, k, v, window=window)
             ref = swa.swa_attention_plain(q, k, v, window=window)
@@ -994,7 +1037,8 @@ class Smoke:
                 if (b, s, hq, hkv, hd, window) == shape and dt == torch.bfloat16:
                     self.record_err(name, o, r)
                     self.row_errors[name] = rel
-            print(f"  swa_attention ok: {tag}, max abs err {err:.3e}, {note}", flush=True)
+            print(f"  swa_attention ok: {tag}, path {path}, max abs err {err:.3e}, {note}",
+                  flush=True)
             del q, k, v, out, again, ref, o, r
         self.free()
 
@@ -3736,25 +3780,42 @@ class Smoke:
             return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200] if str(e) else ''}"
 
     def swa_rows(self):
-        """swa_attention at its three served shapes.  danube's and mixtral's
-        bands: the library call is one ``flex_attention`` with a
-        sliding-window block mask (it computes only the band), or, where
+        """swa_attention at its three served shapes and at qwen3-moe's
+        (whose full-width prefill is not driven; phase 3 has no case at its
+        shape, so its kernel is held against plain here first).  danube's
+        and mixtral's bands: the library call is one ``flex_attention`` with
+        a sliding-window block mask (it computes only the band), or, where
         this torch cannot run it, one scaled_dot_product_attention with the
-        band as a boolean mask (which scores all S^2 pairs).  zamba2's causal triangle:
-        ``scaled_dot_product_attention(is_causal=True)``, the same function
-        with p rounded to bf16.  Operations: 4 hd flops a pair of this run's
-        band (the kernel's hi/lo split of p does 6 hd)."""
+        band as a boolean mask (which scores all S^2 pairs).  The causal
+        triangles (zamba2, qwen3): ``scaled_dot_product_attention(
+        is_causal=True)``, the same function with p rounded to bf16.
+        Operations: 4 hd flops a pair of this run's band (the kernel's
+        hi/lo split of p does 6 hd)."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.swa_attention import ops as swa
         rows = []
         for name, shape in (("swa_attention", SWA_SHAPE),
                             ("swa_attention@zamba2", CAUSAL_SHAPE),
-                            ("swa_attention@mixtral", MIXTRAL_SHAPE)):
+                            ("swa_attention@mixtral", MIXTRAL_SHAPE),
+                            ("swa_attention@qwen3", QWEN3_SHAPE)):
             b, s, hq, hkv, hd, window = shape.values()
             q, k, v = self.swa_inputs(b, s, hq, hkv, hd, torch.bfloat16, seed=3)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))          # (B, H, S, hd)
             kern = lambda: swa.swa_attention_kernel(q, k, v, window=window)
+            print(f"  {name}: path {swa.kernel_path(s, hd, torch.bfloat16)}", flush=True)
+            if name not in self.errors:        # no phase-3 case at this shape
+                o = kern().float()
+                r = swa.swa_attention_plain(q, k, v, window=window).float()
+                err = self.record_err(name, o, r)
+                self.row_errors[name] = self.row_rel(o, r)
+                check(bool(((o - r).abs() <= 2e-2 + 2e-2 * r.abs()).all()),
+                      f"{name}: beyond 2e-2 of its plain version ({err:.3e})")
+                check(self.row_errors[name] <= SWA_ROW_REL, f"{name}: beyond {SWA_ROW_REL:.0e} "
+                      f"mean row relative L2 of plain ({self.row_errors[name]:.3e})")
+                print(f"  {name}: max abs err {err:.3e}, row rel L2 "
+                      f"{self.row_errors[name]:.3e} against plain", flush=True)
+                del o, r
             if window >= s:
                 lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                              enable_gqa=True)
@@ -3801,7 +3862,8 @@ class Smoke:
         # launches: on the kernel's own path; by path: every driven path
         by_path = {p: c[counter] for p, c in self.launches.items() if c[counter]}
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-               "launches": self.launches[path][counter], "launches_by_path": by_path,
+               "launches": self.launches[path][counter] if path else 0,
+               "launches_by_path": by_path,
                "max_abs_err": self.errors[name],
                **({"row_rel_l2": self.row_errors[name]} if name in self.row_errors else {}),
                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),

@@ -17,12 +17,15 @@
 // flops each: 1.29 TFLOP a call, 1.30 ms at 989 TFLOP/s, against 419 MB of
 // q, k, v and o (0.13 ms at 3.35 TB/s).  zamba2-1.2b's (H 32 / 32, hd 64,
 // window = S) holds the causal triangle, 537 M pairs a head: 4.40 TFLOP,
-// 4.45 ms.  p.v takes p in two bf16 terms (below), so the kernel's own
-// arithmetic is 1.5x the bound's: 1.95 ms and 6.7 ms.
+// 4.45 ms.  mixtral-8x7b's band (H 32 / 8, hd 128, window 4,096): 2.06
+// TFLOP, 2.08 ms; qwen3-moe-30b-a3b's triangle (H 32 / 4, hd 128): 8.80
+// TFLOP, 8.89 ms.  p.v takes p in two bf16 terms (below), so the kernel's
+// own arithmetic is 1.5x the bound's.
 //
-// Three kernels, chosen by swa_attention_fwd:
+// Three kernels, chosen by swa_attention_path (which swa_attention_fwd
+// calls, and which the wrapper asks to report the route it takes):
 //
-// swa_fwd_bf16_wgmma, the served path: bfloat16, hd 64 or 80, S >= 128.
+// swa_fwd_bf16_wgmma, the served path: bfloat16, hd 64, 80 or 128, S >= 128.
 // A block of 384 threads owns 128 queries of one (head, batch): warpgroups
 // 0 and 1 (consumers, 240 registers each thread by setmaxnreg) each own 64
 // queries, warpgroup 2 (producer, 24 registers) issues TMA loads from one
@@ -58,7 +61,21 @@
 // n16 wgmma on the second.  Both swizzles keep the wgmma reads and the TMA
 // writes free of bank conflicts, so the split costs one more TMA box a
 // tile and one more (narrow) wgmma a k-step, not conflicts.  hd 64 is one
-// 128-byte box.
+// 128-byte box.  hd 128 is 256 bytes a row, two swizzle atoms: two boxes
+// of 64 columns, both 128-byte swizzled.  Q.K^T takes k-steps 0-3 from the
+// first and 4-7 from the second; P.V is two n64 wgmma a k-step, one on
+// each V box (for hi, then for lo), the MN-major n64 descriptor of region
+// a used twice, where one n128 would have to stride across the boxes.
+// Budgets at hd 128 (128-key tiles): a tile is 32,768 bytes, so Q and 3
+// stages of K and V take 7 x 32,768 + 2,048 of slack and barriers =
+// 231,424 of the 232,448 bytes a block may have; a consumer thread holds
+// O (64 floats), the next tile's S (64) and the previous tile's p as hi/lo
+// fragments (64) across each group, 192 registers of the 240, and ptxas
+// reports no spill (chip_smoke phase 1 fails on one).  Issuing each tile's
+// two products as two groups (128 live) and ping-pong of the two consumer
+// warpgroups on named barriers were both tried at hd 128 and neither was
+// faster: the kernel's own products already run at about the rate SDPA's
+// run at on the card, so the hi/lo split's 1.5x is what is left.
 // The bound the design leaves: per score the softmax takes an FFMA, an
 // ex2, a max, an add and the split on the CUDA cores while the hi/lo
 // split makes the tensor cores do 1.5x the bound's products; at hd 64 the
@@ -293,21 +310,26 @@ constexpr int kWgN = 128;            // keys per kv tile
 constexpr int kStages = 3;           // kv tiles in flight
 constexpr int kWgThreads = 384;      // consumer warpgroups 0 and 1, producer warpgroup 2
 
-// shared-memory bytes of one tile of 128 rows: the 128-byte-swizzled region
-// (columns 0-63) and the 32-byte-swizzled one (columns 64 .. hd - 1)
+// shared-memory bytes of one tile of 128 rows: region a (columns 0-63,
+// 128-byte swizzle) and region b (columns 64 .. hd - 1: 16 columns at the
+// 32-byte swizzle for hd 80, 64 columns at the 128-byte swizzle for hd 128)
 template <int HD>
 struct WgTile {
-  static_assert(HD == 64 || HD == 80, "the wgmma path takes hd 64 or 80");
+  static_assert(HD == 64 || HD == 80 || HD == 128, "the wgmma path takes hd 64, 80 or 128");
   static constexpr int kColsB = HD - 64;
+  static constexpr int kRowB = kColsB * 2;                 // bytes of a row of region b
+  static constexpr uint64_t kLayoutB = kRowB == 128 ? 1 : 3;  // descriptor swizzle code
+  static constexpr int kSboB = 8 * kRowB;                  // bytes of 8 rows of region b
   static constexpr int kBytesA = kWgN * 128;
-  static constexpr int kBytesB = kWgN * kColsB * 2;
+  static constexpr int kBytesB = kWgN * kRowB;
   static constexpr int kBytes = kBytesA + kBytesB;        // a multiple of 1,024
   // Q, K and V stages, then the barriers; 1,024 bytes of slack to align
+  // (hd 128: 7 x 32,768 + 2,048 = 231,424 of the 232,448 a block may have)
   static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 1024 + 1024;
 };
 
 struct WgMaps {                       // TMA descriptors, passed as a grid constant
-  CUtensorMap qa, qb, ka, kb, va, vb; // a: columns 0-63 (swizzle 128B), b: 64-79 (32B)
+  CUtensorMap qa, qb, ka, kb, va, vb; // a: columns 0-63, b: columns 64 .. hd - 1
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -474,9 +496,9 @@ swa_fwd_bf16_wgmma(const __grid_constant__ WgMaps maps, bf16* __restrict__ o, in
     const int c0 = 2 * (lane & 3);            // and columns c0, c0 + 1 of each 8
     const int qlo = i0 + 64 * wg;
     // this warpgroup's 64 rows of Q in each region
-    const uint32_t qa = sQ + wg * 64 * 128, qb = sQ + T::kBytesA + wg * 64 * (T::kColsB * 2);
+    const uint32_t qa = sQ + wg * 64 * 128, qb = sQ + T::kBytesA + wg * 64 * T::kRowB;
 
-    float acc[HD / 2];                        // O: 64 x HD, n64 part then n16 part
+    float acc[HD / 2];                        // O: 64 x HD, n64 part then region b's
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -493,9 +515,15 @@ swa_fwd_bf16_wgmma(const __grid_constant__ WgMaps maps, bf16* __restrict__ o, in
         wgmma_m64n64k16_rs(acc, hi[ks], da);
         wgmma_m64n64k16_rs(acc, lo[ks], da);
         if constexpr (kHasB) {
-          const uint64_t db = wg_desc(va + T::kBytesA + ks * 16 * 32, 256, 256, 3);
-          wgmma_m64n16k16_rs(acc + 32, hi[ks], db);
-          wgmma_m64n16k16_rs(acc + 32, lo[ks], db);
+          const uint64_t db = wg_desc(va + T::kBytesA + ks * 16 * T::kRowB, T::kSboB, T::kSboB,
+                                      T::kLayoutB);
+          if constexpr (T::kColsB == 64) {
+            wgmma_m64n64k16_rs(acc + 32, hi[ks], db);
+            wgmma_m64n64k16_rs(acc + 32, lo[ks], db);
+          } else {
+            wgmma_m64n16k16_rs(acc + 32, hi[ks], db);
+            wgmma_m64n16k16_rs(acc + 32, lo[ks], db);
+          }
         }
       }
     };
@@ -506,8 +534,10 @@ swa_fwd_bf16_wgmma(const __grid_constant__ WgMaps maps, bf16* __restrict__ o, in
       for (int ks = 0; ks < 4; ++ks)
         wgmma_m64n128k16_ss(s, wg_desc(qa + 32 * ks, 16, 1024, 1),
                             wg_desc(ka + 32 * ks, 16, 1024, 1), ks > 0);
-      if constexpr (kHasB)
-        wgmma_m64n128k16_ss(s, wg_desc(qb, 16, 256, 3), wg_desc(ka + T::kBytesA, 16, 256, 3), 1);
+#pragma unroll
+      for (int ks = 0; ks < T::kColsB / 16; ++ks)
+        wgmma_m64n128k16_ss(s, wg_desc(qb + 32 * ks, 16, T::kSboB, T::kLayoutB),
+                            wg_desc(ka + T::kBytesA + 32 * ks, 16, T::kSboB, T::kLayoutB), 1);
     };
     // the mask where a band edge cuts tile n, the online softmax, p into hi/lo
     auto softmax = [&](int n) {
@@ -808,7 +838,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
   WgMaps maps;
-  const CUtensorMapSwizzle a = CU_TENSOR_MAP_SWIZZLE_128B, b = CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle a = CU_TENSOR_MAP_SWIZZLE_128B;
+  const CUtensorMapSwizzle b = HD == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B;
   bool ok = make_map(encode, &maps.qa, q, HD, H, S, B, 64, a) &&
             make_map(encode, &maps.ka, k, HD, Hkv, S, B, 64, a) &&
             make_map(encode, &maps.va, v, HD, Hkv, S, B, 64, a);
@@ -831,26 +862,38 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16.  Pointers 16-byte aligned, tensors contiguous.
+// The kernel swa_attention_fwd launches for a sequence of S, head dim hd and
+// dtype (0 float32, 1 bfloat16): 0 swa_fwd_f32, 1 swa_fwd_bf16_mma (the
+// simple path), 2 swa_fwd_bf16_wgmma (TMA ring + wgmma: bf16, hd 64, 80 or
+// 128, S of at least one 128-key tile); -1 for a dtype it does not take.
+int swa_attention_path(int S, int hd, int dtype) {
+  if (dtype == 0) return 0;
+  if (dtype != 1) return -1;
+  return S >= kWgN && (hd == 64 || hd == 80 || hd == 128) ? 2 : 1;
+}
+
+// Pointers 16-byte aligned, tensors contiguous.
 int swa_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                       int Hkv, int hd, int window, float scale, int dtype, void* stream) {
   if (B < 1 || S < 1 || Hkv < 1 || H < Hkv || H % Hkv || hd < 8 || hd > kMaxHd || hd % 8 ||
       window < 1 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    const size_t smem = sizeof(float) * (size_t)(2 * hd * kLd + kBK * hd + kBK * kLd);
-    return launch<float>(swa_fwd_f32, smem, q, k, v, o, B, S, H, Hkv, hd, window, scale, st);
-  }
-  if (dtype == 1) {
-    if (S >= kWgN && hd == 64)
-      return launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, window, scale, st);
-    if (S >= kWgN && hd == 80)
-      return launch_wgmma<80>(q, k, v, o, B, S, H, Hkv, window, scale, st);
-    const int ld = ((hd + 15) & ~15) + 8;
-    const size_t smem = sizeof(bf16) * (size_t)((kBQ + kBK) * ld + hd * kLdVt);
-    return launch<bf16>(swa_fwd_bf16_mma, smem, q, k, v, o, B, S, H, Hkv, hd, window, scale,
-                        st);
+  switch (swa_attention_path(S, hd, dtype)) {
+    case 0: {
+      const size_t smem = sizeof(float) * (size_t)(2 * hd * kLd + kBK * hd + kBK * kLd);
+      return launch<float>(swa_fwd_f32, smem, q, k, v, o, B, S, H, Hkv, hd, window, scale, st);
+    }
+    case 1: {
+      const int ld = ((hd + 15) & ~15) + 8;
+      const size_t smem = sizeof(bf16) * (size_t)((kBQ + kBK) * ld + hd * kLdVt);
+      return launch<bf16>(swa_fwd_bf16_mma, smem, q, k, v, o, B, S, H, Hkv, hd, window, scale,
+                          st);
+    }
+    case 2:
+      if (hd == 64) return launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+      if (hd == 80) return launch_wgmma<80>(q, k, v, o, B, S, H, Hkv, window, scale, st);
+      return launch_wgmma<128>(q, k, v, o, B, S, H, Hkv, window, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

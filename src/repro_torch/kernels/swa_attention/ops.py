@@ -21,6 +21,9 @@ from repro_torch.kernels import build
 LAUNCHES = {"swa_attention": 0}
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels of ``csrc/swa_attention.cu``, by the code its dispatcher
+#: (``swa_attention_path``) returns
+PATHS = {0: "f32 (CUDA cores)", 1: "bf16 mma.sync (simple)", 2: "bf16 TMA ring + wgmma"}
 
 
 def swa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -92,6 +95,14 @@ def swa_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 "swa_attention")
     LAUNCHES["swa_attention"] += 1
     return out
+
+
+def kernel_path(s: int, hd: int, dtype: torch.dtype) -> str:
+    """The kernel that ``swa_attention_kernel`` launches at sequence length
+    ``s``, head dim ``hd`` and ``dtype``, as the C dispatcher chooses it
+    (one of ``PATHS``; builds the library, so a card's machine only)."""
+    fn = build.function("swa_attention", "swa_attention_path", [ctypes.c_int] * 3)
+    return PATHS[fn(int(s), int(hd), _DTYPE_CODES[dtype])]
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

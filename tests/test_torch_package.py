@@ -613,6 +613,13 @@ def _qkv(b, s, hq, hkv, hd, dtype, device, seed=0):
     (1, 1000, 8, 2, 80, 300),
     (2, 777, 8, 2, 80, 200),
     (1, 100, 4, 2, 80, 4096),
+    # the same path at hd 128 (two 128-byte-swizzled boxes a row): a band
+    # both edges of its tiles cut, window = S with MQA and B 2, a ragged
+    # triangle past a tile; and S below one tile (the simple path)
+    (1, 1000, 8, 2, 128, 300),
+    (2, 777, 8, 1, 128, 777),
+    (1, 4099, 4, 4, 128, 4099),
+    (1, 100, 4, 2, 128, 4096),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_kernel_matches_plain_and_repeats_its_bits(cuda, b, s, hq, hkv, hd, window, dtype):
@@ -621,6 +628,9 @@ def test_swa_kernel_matches_plain_and_repeats_its_bits(cuda, b, s, hq, hkv, hd, 
     (chip_smoke phase 3's bound, which a bf16 p in place of the kernel's
     fp32 p exceeds); two launches give the same bits."""
     q, k, v = _qkv(b, s, hq, hkv, hd, dtype, cuda)
+    wgmma = dtype == torch.bfloat16 and hd in (64, 80, 128) and s >= 128
+    assert swa.kernel_path(s, hd, dtype) == swa.PATHS[
+        2 if wgmma else 0 if dtype == torch.float32 else 1]
     out = swa.swa_attention_kernel(q, k, v, window=window)
     ref = swa.swa_attention_plain(q, k, v, window=window)
     tol = 2e-4 if dtype == torch.float32 else 2e-2

@@ -27,6 +27,9 @@ GRID = [
     (1, 256, 4, 4, 32, 96, 64),      # window not a multiple of the block
     (1, 512, 8, 2, 64, 128, 128),
     (2, 128, 8, 8, 16, 128, 64),     # window == seq
+    # hd 128, the head dim of the kernel's two-box TMA path on the card
+    (1, 256, 4, 2, 128, 100, 64),    # a band
+    (1, 192, 4, 1, 128, 192, 64),    # window == seq, MQA
 ]
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 
